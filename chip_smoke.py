@@ -1,0 +1,350 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with a CUDA card and ``nvcc``.
+Phases (each prints its wall seconds):
+
+0. device and build: the card's name and power limit, then one ``nvcc``
+   call that builds the field kernels (stark_anatomy_tpu_torch/csrc/field.cu);
+1. kernels against their plain versions: H0 ``mont_mul`` and H1
+   ``add_mod``/``sub_mod`` on the card against the plain PyTorch versions
+   on CPU copies of the same inputs, exact equality, at the main path's
+   shapes and a ragged one; then each kernel's time per launch beside the
+   plain version's time on the card and the bound;
+2. main path: ``FastRPSSS()`` keygen, sign and verify on the card at the
+   production parameters; verify must accept, and reject a forged
+   document and another key's pk; every kernel's launch count must rise;
+   then one warm-up and three timed signs and verifies;
+3. card against CPU: one seeded sign on the card and one with
+   ``device="cpu"`` must give identical bytes, and each must verify the
+   other's signature.
+
+The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
+line with one record per kernel, and the result line
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
+before the result line; without CUDA, or without the package beside this
+script, it exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import random
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+INT32_OPS_PER_S = 67e12     # H100 SXM 32-bit rate outside the tensor cores
+SHAPES = [(1, 2, 8, 4096), (8, 1024), (8, 1000)]
+MAIN_SHAPE = (1, 2, 8, 4096)
+DOC = b"chip smoke: FastRPSSS on the card"
+
+# what each kernel replaces in the JAX package, and 32-bit integer
+# operations per element (H0: 36 32x32->64 products, two words each;
+# H1: a 4-word add or subtract and the conditional correction)
+KERNEL_INFO = {
+    "mont_mul": ("stark_anatomy_tpu/field/pallas_kernels.py:114", 72),
+    "add_mod": ("stark_anatomy_tpu/field/limb_arith.py:62", 16),
+    "sub_mod": ("stark_anatomy_tpu/field/limb_arith.py:68", 16),
+}
+
+
+def det_urandom(seed: bytes):
+    """Deterministic os.urandom stand-in (counter-mode blake2b stream)."""
+    state = {"ctr": 0}
+
+    def rand(n: int) -> bytes:
+        out = b""
+        while len(out) < n:
+            out += hashlib.blake2b(seed + state["ctr"].to_bytes(8, "big")).digest()
+            state["ctr"] += 1
+        return out[:n]
+
+    return rand
+
+
+def phase(name: str, start: float) -> None:
+    print(f"phase {name}: {time.perf_counter() - start:.3f} s", flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=10, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_launches(fn, iters: int) -> float:
+    """Milliseconds per call of ``fn`` on the card (CUDA events)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_us(prof) -> dict:
+    """{kernel name: (launches, device microseconds)} from a torch.profiler
+    run; empty if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue                  # host ops: their device time is the kernels'
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            out[e.key] = (e.count, us)
+    return out
+
+
+def profile_kernels(fns: dict, iters: int) -> dict:
+    """Device microseconds per launch of each kernel, by the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in fns.values():
+            for _ in range(iters):
+                fn()
+        torch.cuda.synchronize()
+    seen = device_us(prof)
+    out = {}
+    for name, tag in (("mont_mul", "MontMul"), ("add_mod", "AddMod"), ("sub_mod", "SubMod")):
+        hits = [v for k, v in seen.items() if tag in k]
+        if hits:
+            out[name] = sum(us for _, us in hits) / sum(c for c, _ in hits)
+    return out
+
+
+def profile_sign(sign) -> None:
+    """Where one sign's time goes on the card: wall, device busy time and
+    the kernels that take it (torch.profiler; 'not measured' if the
+    profiler sees no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        sign()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    seen = device_us(prof)
+    busy = sum(us for _, us in seen.values()) / 1e6
+    launches = sum(c for c, _ in seen.values())
+    if not seen:
+        print(f"profile of one sign: wall {wall:.4f} s, device time not measured")
+        return
+    print(f"profile of one sign: wall {wall:.4f} s (under the profiler), device busy "
+          f"{busy:.4f} s = {100 * busy / wall:.2f}% of wall, {launches} kernel launches")
+    top = sorted(seen.items(), key=lambda kv: -kv[1][1])[:8]
+    for key, (count, us) in top:
+        print(f"  {us / 1e3:9.3f} ms  {count:6d} launches  {key[:90]}")
+
+
+def field_inputs(shape, seed: int):
+    """Two seeded limb tensors of ``shape`` (CPU) holding values in [0, p);
+    their first elements are 0, 1, p-1 and the Montgomery one (R mod p),
+    in rotated order."""
+    import math
+
+    import torch
+
+    from stark_anatomy_tpu_torch.field.limbs import R, ints_to_array
+    from stark_anatomy_tpu_torch.field.scalar import P
+
+    rng = random.Random(seed)
+    count = math.prod(shape) // 8
+    special = [0, 1, P - 1, R % P]
+    lead, n = tuple(shape[:-2]), shape[-1]
+    out = []
+    for rot in range(2):
+        vals = [rng.randrange(P) for _ in range(count)]
+        k = min(len(special), count)
+        vals[:k] = (special[rot:] + special[:rot])[:k]
+        rows = torch.from_numpy(ints_to_array(vals, montgomery=False).astype("int32"))
+        # (count, 8) element-major -> (*lead, 8, n)
+        out.append(rows.reshape(lead + (n, 8)).transpose(-1, -2).contiguous())
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.models.rescue_prime import hash_batch, trace_batch
+    from stark_anatomy_tpu_torch.models.rpsss import FastRPSSS
+    from stark_anatomy_tpu_torch.utils.convert import device_from_ints, ints_from_device
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+
+    # -- phase 0: device and build ------------------------------------------
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(f"device: {kind} (count {torch.cuda.device_count()})")
+    print(f"nvidia-smi: {smi}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    tb = time.perf_counter()
+    K.load()
+    print(f"build: {time.perf_counter() - tb:.3f} s (one nvcc call, {K.NVCC_FLAGS})")
+    for line in K.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  ptxas:", line.strip())
+    phase("0 device+build", t0)
+
+    # -- phase 1: kernels against their plain versions ----------------------
+    t1 = time.perf_counter()
+    worst_mismatch, worst_err = 0, {name: 0 for name in K.KERNELS}
+    cases = [(s, s) for s in SHAPES] + [(MAIN_SHAPE, (8, 1)), (MAIN_SHAPE, (8, 4096))]
+    for i, (sa, sb) in enumerate(cases):
+        a_cpu, _ = field_inputs(sa, 100 + i)
+        _, b_cpu = field_inputs(sb, 200 + i)
+        a, b = a_cpu.to(dev), b_cpu.to(dev)
+        for name in K.KERNELS:
+            got = getattr(K, name)(a, b)
+            torch.cuda.synchronize()
+            want = K.PLAIN[name](a_cpu, b_cpu)
+            got = got.cpu()
+            assert got.shape == want.shape, (name, got.shape, want.shape)
+            mismatch = int((got != want).any(dim=-2).sum())
+            err = int((got.long() - want.long()).abs().max())
+            print(f"  {name} {sa} x {sb}: mismatched elements {mismatch}, max abs limb error {err}")
+            worst_mismatch = max(worst_mismatch, mismatch)
+            worst_err[name] = max(worst_err[name], err)
+    print(f"max mismatch count: {worst_mismatch}")
+    assert worst_mismatch == 0, "a kernel disagrees with its plain version"
+
+    # the Rescue-Prime known-answer vectors through the kernels
+    vec_in = [1, 57322816861100832358702415967512842988]
+    vec_out = [244180265933090377212304188905974087294, 89633745865384635541695204788332415101]
+    assert ints_from_device(hash_batch(device_from_ints(vec_in, dev))) == vec_out
+
+    a, b = (x.to(dev) for x in field_inputs(MAIN_SHAPE, 7))
+    numel = a.numel() // 8
+    records = {}
+    for name in K.KERNELS:
+        kern, plain = getattr(K, name), K.PLAIN[name]
+        ms = time_launches(lambda: kern(a, b), 200)
+        plain_ms = time_launches(lambda: plain(a, b), 20)
+        bytes_ms = 3 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3
+        ops_ms = numel * KERNEL_INFO[name][1] / INT32_OPS_PER_S * 1e3
+        records[name] = {
+            "name": name,
+            "route": "cuda",
+            "source": "stark_anatomy_tpu_torch/csrc/field.cu",
+            "replaces": KERNEL_INFO[name][0],
+            "launches": None,
+            "max_abs_err": worst_err[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+        }
+        print(f"  {name} at {MAIN_SHAPE}: {ms:.6f} ms/launch, plain {plain_ms:.6f} ms, "
+              f"bound {records[name]['bound_ms']:.6f} ms ({records[name]['bound_by']})")
+    dev_us = profile_kernels({name: (lambda k=getattr(K, name): k(a, b)) for name in K.KERNELS}, 100)
+    for name in K.KERNELS:
+        got = dev_us.get(name)
+        print(f"  {name} device time per launch (profiler): "
+              + (f"{got:.3f} us" if got is not None else "not measured"))
+    phase("1 kernels", t1)
+
+    # -- phase 2: the main path ---------------------------------------------
+    t2 = time.perf_counter()
+    scheme = FastRPSSS()
+    assert scheme.device.type == "cuda"
+    keys = det_urandom(b"chip smoke keys")
+    sk, pk = scheme.keygen(keys)
+    _, pk_other = scheme.keygen(keys)
+
+    K.reset_launch_counts()
+    sig = scheme.sign(sk, DOC)
+    torch.cuda.synchronize()
+    sign_launches = dict(K.LAUNCHES)
+    accepted = scheme.verify(pk, DOC, sig)
+    torch.cuda.synchronize()
+    path_launches = dict(K.LAUNCHES)
+    print(f"launches in one sign: {sign_launches}; sign + verify: {path_launches}")
+    assert accepted, f"verify rejected an honest signature: {scheme.stark.last_rejection}"
+    assert not scheme.verify(pk, b"forged document", sig), "verify accepted a forged document"
+    assert not scheme.verify(pk_other, DOC, sig), "verify accepted another key's pk"
+    for name in K.KERNELS:
+        assert sign_launches[name] > 0, f"{name} was not launched during sign"
+        records[name]["launches"] = path_launches[name]
+    print(f"signature: {len(sig)} bytes")
+
+    sign_s, verify_s = [], []
+    for _ in range(4):                       # one warm-up, three timed
+        ts = time.perf_counter()
+        s = scheme.sign(sk, DOC)
+        torch.cuda.synchronize()
+        tv = time.perf_counter()
+        assert scheme.verify(pk, DOC, s)
+        torch.cuda.synchronize()
+        sign_s.append(tv - ts)
+        verify_s.append(time.perf_counter() - tv)
+    print(f"sign seconds (median of 3): {statistics.median(sign_s[1:]):.4f} {sign_s[1:]} on {smi}")
+    print(f"verify seconds (median of 3): {statistics.median(verify_s[1:]):.4f} {verify_s[1:]} on {smi}")
+    # the Rescue trace alone: 27 rounds on one 2-element state
+    trace_s = []
+    before = K.LAUNCHES["mont_mul"]
+    sk_dev = device_from_ints([sk.value], dev)
+    for _ in range(3):
+        ts = time.perf_counter()
+        trace_batch(sk_dev)
+        torch.cuda.synchronize()
+        trace_s.append(time.perf_counter() - ts)
+    print(f"rescue trace_batch seconds (median of 3): {statistics.median(trace_s):.4f}, "
+          f"{(K.LAUNCHES['mont_mul'] - before) // 3} mont_mul launches each")
+    profile_sign(lambda: scheme.sign(sk, DOC))
+    phase("2 main path", t2)
+
+    # -- phase 3: card against CPU, byte for byte ----------------------------
+    t3 = time.perf_counter()
+    sig_card = scheme.sign(sk, DOC, det_urandom(b"chip smoke sign"))
+    cpu = FastRPSSS(device="cpu")
+    sig_cpu = cpu.sign(sk, DOC, det_urandom(b"chip smoke sign"))
+    assert sig_card == sig_cpu, "the card and the CPU signed different bytes"
+    assert scheme.verify(pk, DOC, sig_cpu), "the card rejected the CPU's signature"
+    assert cpu.verify(pk, DOC, sig_card), "the CPU rejected the card's signature"
+    print(f"card and CPU signatures identical ({len(sig_card)} bytes), cross-verified")
+    phase("3 card vs cpu", t3)
+
+    print(f"total: {time.perf_counter() - t0:.3f} s")
+    print(smi)
+    print(json.dumps({"kernels": [records[name] for name in K.KERNELS]}))
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,246 @@
+"""The field kernels written by hand for Hopper, with their plain versions.
+
+H0 ``mont_mul`` replaces the JAX package's only TPU kernel, K0
+(stark_anatomy_tpu/field/pallas_kernels.py:mont_mul_pallas_core).  H1
+``add_mod`` and ``sub_mod`` replace the jnp row functions
+field/limb_arith.py:add_mod_rows and sub_mod_rows.  The sources are
+csrc/field.cu; its header says what bounds each kernel and why the
+design is simple for now.
+
+Each wrapper takes int32 limb tensors (..., 8, n) in Montgomery form:
+* on a CPU tensor it runs the kernel's plain PyTorch version below;
+* on a CUDA tensor it launches the kernel on the current stream, or
+  raises: there is no fallback.
+
+The library is built at first use by one ``nvcc`` call into
+``_build/`` (git-ignored), cached by a hash of the source and flags, and
+loaded with ctypes.  ``LAUNCHES`` counts the launches of each kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .limb_arith import add_mod_rows, carry_rows, cond_sub_p_rows, sub_mod_rows
+from .limbs import LIMB_BITS, MASK, NLIMBS, NPRIME, int_to_limbs
+from .scalar import P
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "field.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+KERNELS = ("mont_mul", "add_mod", "sub_mod")
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+build_log = ""          # nvcc's output (ptxas register use) of the last build
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found: the field kernels are built from csrc/field.cu")
+
+
+def build() -> str:
+    """Compile csrc/field.cu unless this source was built already; returns
+    the path of the shared library."""
+    global build_log
+    with open(SOURCE, "rb") as f:
+        src = f.read()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = os.path.join(BUILD_DIR, f"libstark_field_{key}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    build_log = proc.stdout + proc.stderr
+    os.replace(tmp, lib)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 8
+            + [ctypes.c_void_p, ctypes.c_int]
+        )
+        for name in KERNELS:
+            fn = getattr(lib, "stark_" + name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# launch
+# ---------------------------------------------------------------------------
+
+def operand_strides(
+    x: torch.Tensor, lead: Tuple[int, ...], n: int
+) -> Optional[Tuple[int, int, int]]:
+    """(batch, limb, element) strides of an operand the kernels take for an
+    output (*lead, 8, n), or None.  They take a contiguous int32 tensor
+    whose leading shape is ``lead`` or all ones, and whose last axis is n
+    or 1 (one element broadcast along the row)."""
+    if x.dtype != torch.int32 or x.dim() < 2 or x.shape[-2] != NLIMBS:
+        return None
+    if not x.is_contiguous():
+        return None
+    nx = x.shape[-1]
+    if nx != n and nx != 1:
+        return None
+    xlead = tuple(x.shape[:-2])
+    if xlead == lead:
+        sb = NLIMBS * nx
+    elif math.prod(xlead) == 1:
+        sb = 0
+    else:
+        return None
+    return sb, nx, (1 if nx == n else 0)
+
+
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{name}: operands must lie on one CUDA device, got {a.device} and {b.device}")
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    if len(shape) < 2 or shape[-2] != NLIMBS:
+        raise ValueError(f"{name}: expected (..., {NLIMBS}, n) limb tensors, got {tuple(shape)}")
+    lead, n = tuple(shape[:-2]), shape[-1]
+    sa = operand_strides(a, lead, n)
+    sb = operand_strides(b, lead, n)
+    if sa is None or sb is None:
+        raise ValueError(
+            f"{name}: the kernel takes contiguous int32 (..., {NLIMBS}, n) operands "
+            f"that match or broadcast whole axes; got {tuple(a.shape)} {a.dtype} and "
+            f"{tuple(b.shape)} {b.dtype}"
+        )
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    if out.numel() == 0:
+        return out
+    fn = getattr(load(), "stark_" + name)
+    err = fn(
+        out.data_ptr(), a.data_ptr(), b.data_ptr(), math.prod(lead), n, *sa, *sb,
+        torch.cuda.current_stream(a.device).cuda_stream, a.device.index,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _dispatch(name: str, plain, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return plain(a, b)
+    return _launch(name, a, b)
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """H0: Montgomery product a*b*2^-128 mod p, elementwise."""
+    return _dispatch("mont_mul", mont_mul_plain, a, b)
+
+
+def add_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """H1: (a + b) mod p, elementwise."""
+    return _dispatch("add_mod", add_mod_plain, a, b)
+
+
+def sub_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """H1: (a - b) mod p, elementwise."""
+    return _dispatch("sub_mod", sub_mod_plain, a, b)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (any device, any broadcastable shapes)
+# ---------------------------------------------------------------------------
+
+_CONSTS: Dict[tuple, torch.Tensor] = {}
+
+
+def _limb_col(value: int, device: torch.device) -> torch.Tensor:
+    key = (value, device)
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.tensor(
+            int_to_limbs(value), dtype=torch.int64, device=device
+        ).view(NLIMBS, 1)
+    return _CONSTS[key]
+
+
+def _cols(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Column sums of the limb product x*y, not carried: (..., 15, n) with
+    column k = sum_{i+j=k} x_i * y_j.  Row i of the (8, 8) product table
+    is sheared right by i (pad, flatten, drop the tail, refold), so one sum
+    over rows gives every column."""
+    prod = x.unsqueeze(-2) * y.unsqueeze(-3)                     # (..., 8, 8, n)
+    wide = torch.nn.functional.pad(prod, (0, 0, 0, NLIMBS))      # (..., 8, 16, n)
+    lead, n = wide.shape[:-3], wide.shape[-1]
+    flat = wide.reshape(lead + (2 * NLIMBS * NLIMBS, n))
+    flat = flat[..., : NLIMBS * (2 * NLIMBS - 1), :]
+    return flat.reshape(lead + (NLIMBS, 2 * NLIMBS - 1, n)).sum(-3)
+
+
+def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of H0 in int64: U = T + m*p with T = a*b and
+    m = T*(-p^-1) mod 2^128, result U / 2^128 less p once if needed.
+    Columns stay uncarried until a carry is needed: a column of T holds at
+    most 8 products < 2^32, one of T*N' at most 8 products < 2^51."""
+    a, b = torch.broadcast_tensors(a, b)
+    dev = a.device
+    t = _cols(a.long(), b.long())                                # T, (..., 15, n)
+    m_cols = _cols(t[..., :NLIMBS, :], _limb_col(NPRIME, dev))[..., :NLIMBS, :]
+    m_rows, _ = carry_rows(list(m_cols.unbind(-2)))              # m mod 2^128
+    u = t + _cols(torch.stack(m_rows, -2), _limb_col(P, dev))
+    u_rows, carry = carry_rows(list(u.unbind(-2)))
+    r = u_rows[NLIMBS:] + [carry & MASK]                         # U >> 128
+    out = cond_sub_p_rows(r, carry >> LIMB_BITS)
+    return torch.stack(out, -2).to(torch.int32)
+
+
+def add_mod_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of H1's add (field/limb_arith.py:add_mod_rows)."""
+    a, b = torch.broadcast_tensors(a, b)
+    out = add_mod_rows(list(a.long().unbind(-2)), list(b.long().unbind(-2)))
+    return torch.stack(out, -2).to(torch.int32)
+
+
+def sub_mod_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of H1's subtract (field/limb_arith.py:sub_mod_rows)."""
+    a, b = torch.broadcast_tensors(a, b)
+    out = sub_mod_rows(list(a.long().unbind(-2)), list(b.long().unbind(-2)))
+    return torch.stack(out, -2).to(torch.int32)
+
+
+PLAIN = {"mont_mul": mont_mul_plain, "add_mod": add_mod_plain, "sub_mod": sub_mod_plain}

@@ -1,0 +1,609 @@
+"""FastStark: the device-accelerated STARK prover, small-trace branches.
+
+The port of stark_anatomy_tpu/protocols/fast_stark.py.  Same transcript
+structure as the JAX package (boundary-quotient roots, randomizer root,
+Fiat-Shamir weights, FRI, quadrupled-index openings including the
+preprocessed transition-zerofier section), hence the same proof bytes:
+
+* trace interpolation over the length-n PREFIX of the omicron domain by
+  the partial-fractions identity  f = Z_n * A / (x^M - 1)  with
+  A = M * rot(intt(v / Z_n'(omega^i)));
+* everything downstream evaluated POINTWISE on FRI-domain codewords:
+  boundary quotients, the AIR (a model's device evaluator), transition
+  quotients, degree-adjustment shifts and the weighted combination.
+
+All field arithmetic goes through field/ops.py, so on the card it runs in
+the hand-written kernels.  Ported here: the host-zerofier and n <= 2048
+branches, ``prove`` (with FRI on the host) and ``verify`` with the
+batched device check.  The large-trace branches (rolling zerofier,
+blocked-coset LDE, bulk device randomness) and the generic AIR compiler
+(``compile_air``) wait for later slices and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import os
+from functools import reduce
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..commit.merkle import MerkleTree, open_multi, verify_multi
+from ..config import resolve_device
+from ..errors import MalformedProof, VerificationError, rejects_malformed
+from ..field import ops as F
+from ..field.limbs import NLIMBS
+from ..field.scalar import FieldElement, P
+from ..ops import ntt as NTT
+from ..ops.domain import DOMAINS, mont_const
+from ..poly.host_ntt import host_zerofier
+from ..poly.multivariate import MPolynomial
+from ..transcript.proof_stream import ProofStream
+from ..utils.convert import canonical_np, device_from_ints, gather_rows, ints_from_device
+from .stark import Boundary, StarkParams
+
+
+class TransitionZerofier:
+    """Preprocessing artifact (reference: fast_stark.py:36-40) extended with
+    the cached inverse codeword and Merkle tree."""
+
+    def __init__(self, codeword, rows, inv_codeword, tree):
+        self.codeword = codeword              # (L, N_fri) Montgomery, or None
+        self.rows = rows                      # canonical (N_fri, L) numpy rows
+        self.inv_codeword = inv_codeword      # (L, N_fri) Montgomery
+        self.tree = tree                      # MerkleTree
+
+    @property
+    def root(self) -> bytes:
+        return self.tree.root
+
+
+class FastStark(StarkParams):
+    # above this many randomizer coefficients the JAX package switches to
+    # bulk device sampling (utils/rand.py), which is not ported yet
+    bulk_randomizer_threshold: int = 4096
+
+    def __init__(self, *args, device=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.device = resolve_device(device)
+        self._interp_cache = None
+        self._bz_cache: Dict[tuple, tuple] = {}
+        self._xpow_cache: Dict[int, torch.Tensor] = {}
+        self._x_lde_arr = None
+
+    # ------------------------------------------------------------------
+    # preprocessing
+    # ------------------------------------------------------------------
+    def preprocess(self) -> TransitionZerofier:
+        """Commit to the transition zerofier Z(x) = prod_{i<T-1}(x - omicron^i):
+        host coefficients, one coset LDE, a paired-leaf commitment and the
+        inverse codeword."""
+        count = self.original_trace_length - 1
+        if count > NTT.HOST_ZEROFIER_MAX:
+            raise NotImplementedError(
+                "large-trace transition zerofier (stark_anatomy_tpu/ops/ntt.py:"
+                "prefix_zerofier_evals) is not ported yet"
+            )
+        pts = [e.value for e in self.omicron_powers(count)]
+        coeffs = device_from_ints(host_zerofier(pts), self.device)
+        codeword = NTT.coset_evaluate(coeffs, self.generator.value, self.fri_domain_length)
+        rows, tree = self._commit_rows(codeword)
+        return TransitionZerofier(None, rows, F.batch_inv(codeword), tree)
+
+    def _x_lde(self) -> torch.Tensor:
+        """Cached FRI-domain codeword of x itself: g * omega_N^j."""
+        if self._x_lde_arr is None:
+            N = self.fri_domain_length
+            self._x_lde_arr = F.mont_mul(
+                DOMAINS.get(N, self.device)["fwd_powers"],
+                mont_const(self.generator.value, self.device),
+            )
+        return self._x_lde_arr
+
+    # ------------------------------------------------------------------
+    # cached per-instance device tables
+    # ------------------------------------------------------------------
+    def _interp_tables(self):
+        """Tables for prefix-domain interpolation + LDE (see module doc)."""
+        if self._interp_cache is not None:
+            return self._interp_cache
+        n = self.randomized_trace_length
+        M = self.omicron_domain_length
+        N = self.fri_domain_length
+        g = self.generator.value
+        E = self.expansion_factor
+        dev = self.device
+        if n > NTT.HOST_ZEROFIER_MAX:
+            raise NotImplementedError(
+                "large-trace interpolation tables (stark_anatomy_tpu/protocols/"
+                "fast_stark.py:_interp_tables, n > 2048) are not ported yet"
+            )
+        x_lde = self._x_lde()
+
+        # Z_n from host coefficients; Z_n' via the coefficient derivative
+        # (k+1) * z_{k+1} evaluated with one length-M NTT
+        pts = [e.value for e in self.omicron_powers(n)]
+        zn = device_from_ints(host_zerofier(pts), dev)           # (L, n+1)
+        kplus1 = np.arange(1, zn.shape[-1], dtype=np.int64)
+        k_limbs = np.zeros((NLIMBS, len(kplus1)), dtype=np.int32)
+        k_limbs[0] = kplus1 & 0xFFFF
+        k_limbs[1] = kplus1 >> 16
+        k_mont = F.to_mont(torch.from_numpy(k_limbs).to(dev))
+        dz = F.mont_mul(zn[..., 1:], k_mont)                      # (L, n)
+        dz_evals = NTT.ntt(NTT._pad_coeffs(dz, M))                # (L, M)
+        inv_dz = F.batch_inv(dz_evals[..., :n])                   # (L, n)
+        zn_fri = NTT.coset_evaluate(zn, g, N)                     # (L, N)
+
+        # 1 / ((g*omega_N^j)^M - 1) has period E: E host inversions, tiled
+        zeta = pow(self.omega.value, M, P)
+        gM = pow(g, M, P)
+        vals = [pow(gM * pow(zeta, j, P) % P - 1, P - 2, P) for j in range(E)]
+        inv_xm = device_from_ints(vals, dev).repeat(1, N // E)
+
+        self._interp_cache = {
+            "inv_dz": inv_dz,
+            # _trace_lde multiplies by Z_n(x) and 1/(x^M - 1) back to back
+            "zn_over_xm": F.mont_mul(zn_fri, inv_xm),
+            "x_lde": x_lde,
+            "m_const": mont_const(M, dev),
+        }
+        return self._interp_cache
+
+    def _commit_rows(self, codeword: torch.Tensor):
+        """Commit one (L, N) codeword: canonical host rows + paired-leaf tree."""
+        canon = canonical_np(codeword)
+        return canon, MerkleTree.from_limbs_paired(canon)
+
+    def _commit_rows_many(self, codewords: torch.Tensor):
+        """Commit R stacked codewords (R, L, N) with one device->host copy."""
+        canon = canonical_np(codewords)                           # (R, N, L)
+        return [(canon[s], MerkleTree.from_limbs_paired(canon[s])) for s in range(canon.shape[0])]
+
+    def _trace_lde(self, columns: torch.Tensor) -> torch.Tensor:
+        """(..., R, L, n) trace columns -> (..., R, L, N_fri) LDE; the trace
+        polynomial is never materialized in coefficient form."""
+        t = self._interp_tables()
+        M = self.omicron_domain_length
+        N = self.fri_domain_length
+        c = F.mont_mul(columns, t["inv_dz"])                     # v_i / Z'(w^i)
+        c = NTT._pad_coeffs(c, M)                                 # zeros beyond n
+        e = NTT.intt(c)
+        a = F.mont_mul(torch.roll(e, -1, dims=-1), t["m_const"])  # A = M * rot(e)
+        a_lde = NTT.coset_evaluate(a, self.generator.value, N)    # (..., R, L, N)
+        return F.mont_mul(a_lde, t["zn_over_xm"])
+
+    def _x_lde_pow(self, e: int) -> torch.Tensor:
+        """Codeword of x^e on the FRI coset, closed form:
+        (g*omega^j)^e = g^e * omega^(j*e mod N), one gather from the domain
+        power table."""
+        e = int(e)
+        if e not in self._xpow_cache:
+            N = self.fri_domain_length
+            tab = DOMAINS.get(N, self.device)["fwd_powers"]
+            idx = (torch.arange(N, device=self.device) * (e % N)) & (N - 1)
+            self._xpow_cache[e] = F.mont_mul(
+                tab.index_select(-1, idx),
+                mont_const(pow(self.generator.value, e, P), self.device),
+            )
+        return self._xpow_cache[e]
+
+    def _boundary_tables(self, boundary: Boundary):
+        """FRI-domain codewords of the boundary zerofiers (inverted) and
+        interpolants, cached by boundary values (two entries at most)."""
+        key = tuple(sorted((c, r, v.value) for c, r, v in boundary))
+        if key in self._bz_cache:
+            return self._bz_cache[key]
+        while len(self._bz_cache) >= 2:
+            self._bz_cache.pop(next(iter(self._bz_cache)))
+        t = self._interp_tables()
+        out = _boundary_tables_core(
+            self._stack_coeffs(self.boundary_zerofiers(boundary)),
+            self._stack_coeffs(self.boundary_interpolants(boundary)),
+            t["x_lde"],
+        )
+        self._bz_cache[key] = out
+        return out
+
+    def _stack_coeffs(self, polys) -> torch.Tensor:
+        """Host polynomials -> (R, L, deg) zero-padded coefficient tensor."""
+        deg = max(max(len(p.coefficients) for p in polys), 1)
+        return torch.stack(
+            [
+                NTT._pad_coeffs(
+                    device_from_ints([c.value for c in p.coefficients] or [0], self.device),
+                    deg,
+                )
+                for p in polys
+            ]
+        )
+
+    # ------------------------------------------------------------------
+    # prover
+    # ------------------------------------------------------------------
+    def prove(
+        self,
+        trace: List[List[FieldElement]],
+        transition_constraints: Sequence[MPolynomial],
+        boundary: Boundary,
+        transition_zerofier: TransitionZerofier,
+        proof_stream: Optional[ProofStream] = None,
+        air_evaluator=None,
+        urandom=os.urandom,
+    ) -> bytes:
+        """Generate a proof.  ``air_evaluator`` is a device function
+        (x_lde, current, next_) -> (C, L, N) evaluating the transition
+        constraints pointwise (the JAX package's generic ``compile_air``
+        fallback is not ported yet).  The trace comes as host rows; the
+        JAX package's ``trace_columns`` input waits for the MiMC slice.
+        Randomness is drawn from ``urandom`` in the JAX package's order,
+        so a seeded run gives the same bytes."""
+        if air_evaluator is None:
+            raise NotImplementedError(
+                "the generic AIR compiler (stark_anatomy_tpu/protocols/fast_stark.py:"
+                "compile_air) is not ported yet: pass air_evaluator"
+            )
+        if proof_stream is None:
+            proof_stream = ProofStream()
+        R = self.num_registers
+        N = self.fri_domain_length
+        dev = self.device
+        t = self._interp_tables()
+
+        # randomized trace columns: (R, L, n)
+        rand_rows = [
+            [self.field.sample(urandom(17)).value for _ in range(R)]
+            for _ in range(self.num_randomizers)
+        ]
+        rows = [[v.value for v in row] for row in trace] + rand_rows
+        columns = torch.stack(
+            [device_from_ints([rows[c][s] for c in range(len(rows))], dev) for s in range(R)]
+        )
+        n_rows = len(rows)
+
+        trace_lde = self._trace_lde(columns)                     # (R, L, N)
+
+        # boundary quotients, committed
+        inv_bz, interp = self._boundary_tables(boundary)
+        bq_lde = _bq_core(trace_lde, interp, inv_bz)             # (R, L, N)
+        bq_trees: List[MerkleTree] = []
+        bq_rows = []
+        for rows_s, tree in self._commit_rows_many(bq_lde):
+            bq_rows.append(rows_s)
+            bq_trees.append(tree)
+            proof_stream.push(tree.root)
+
+        # transition quotients: pointwise AIR / zerofier
+        air_q = _air_quotient_fn(air_evaluator, self.expansion_factor)
+        tq_lde = air_q(t["x_lde"], trace_lde, transition_zerofier.inv_codeword)
+
+        # randomizer polynomial
+        max_degree = self.max_degree(transition_constraints)
+        if max_degree + 1 > self.bulk_randomizer_threshold:
+            raise NotImplementedError(
+                "bulk device randomness (stark_anatomy_tpu/utils/rand.py) is not ported yet"
+            )
+        rand_coeffs = [self.field.sample(urandom(17)).value for _ in range(max_degree + 1)]
+        rand_lde = NTT.coset_evaluate(
+            device_from_ints(rand_coeffs, dev), self.generator.value, N
+        )
+        rand_rows, rand_tree = self._commit_rows(rand_lde)
+        proof_stream.push(rand_tree.root)
+
+        # Fiat-Shamir weights
+        weights = self.sample_weights(
+            1 + 2 * len(transition_constraints) + 2 * R, proof_stream.prover_fiat_shamir()
+        )
+
+        # weighted combination, pointwise: w_a*q + w_b*x^s*q = q*(w_a + w_b*x^s)
+        tq_bounds = self.transition_quotient_degree_bounds(transition_constraints)
+        bq_bounds = self.boundary_quotient_degree_bounds(n_rows, boundary)
+        tq_shift = torch.stack([self._x_lde_pow(max_degree - b) for b in tq_bounds])
+        bq_shift = torch.stack([self._x_lde_pow(max_degree - b) for b in bq_bounds])
+        w_dev = torch.stack([mont_const(wv.value, dev) for wv in weights])
+        combo = _combination_core(rand_lde, tq_lde, bq_lde, tq_shift, bq_shift, w_dev)
+
+        # FRI on the host over the combination codeword (the transcript is
+        # byte-identical to the JAX package's device FRI)
+        indices = self.fri.prove_host(ints_from_device(combo), proof_stream)
+
+        # linked openings at quadrupled indices (reference: fast_stark.py:154-177)
+        duplicated = indices + [(i + self.expansion_factor) % N for i in indices]
+        quadrupled = sorted(duplicated + [(i + N // 2) % N for i in duplicated])
+        leaf_indices = sorted({i % (N // 2) for i in duplicated})
+        for s in range(R):
+            proof_stream.push(gather_rows(bq_rows[s], quadrupled))
+            proof_stream.push(open_multi(bq_trees[s], leaf_indices))
+        proof_stream.push(gather_rows(rand_rows, quadrupled))
+        proof_stream.push(open_multi(rand_tree, leaf_indices))
+        proof_stream.push(gather_rows(transition_zerofier.rows, quadrupled))
+        proof_stream.push(open_multi(transition_zerofier.tree, leaf_indices))
+        return proof_stream.serialize()
+
+    # ------------------------------------------------------------------
+    # verifier (host scalar; mirrors reference fast_stark.py:180-286)
+    # ------------------------------------------------------------------
+    @rejects_malformed
+    def verify(
+        self,
+        proof: bytes,
+        transition_constraints: Sequence[MPolynomial],
+        boundary: Boundary,
+        transition_zerofier_root: bytes,
+        proof_stream_factory=None,
+        air_point_evaluator=None,
+        air_index_evaluator=None,
+    ) -> bool:
+        """Verify a proof.  ``air_point_evaluator``, if given, is a scalar
+        function (x, current_trace, next_trace) -> constraint values used
+        in place of the symbolic ``MPolynomial.evaluate`` — models whose
+        constraints factor (e.g. Rescue's lhs - rhs**3,
+        models/rescue_prime.py:make_point_air) evaluate orders of magnitude
+        faster than their expanded monomial form."""
+        original_trace_length = 1 + max(c for c, r, v in boundary)
+        randomized_trace_length = original_trace_length + self.num_randomizers
+
+        if proof_stream_factory is None:
+            proof_stream = ProofStream.deserialize(proof)
+        else:
+            proof_stream = proof_stream_factory(proof)
+
+        R = self.num_registers
+        boundary_quotient_roots = [proof_stream.pull_typed(bytes) for _ in range(R)]
+        randomizer_root = proof_stream.pull_typed(bytes)
+
+        weights = self.sample_weights(
+            1 + 2 * len(transition_constraints) + 2 * R,
+            proof_stream.verifier_fiat_shamir(),
+        )
+
+        polynomial_values: List[Tuple[int, int]] = []
+        if not self.fri.verify(proof_stream, polynomial_values):
+            raise VerificationError(f"FRI rejected: {self.fri.last_rejection}")
+        polynomial_values.sort(key=lambda iv: iv[0])
+        indices = [i for i, v in polynomial_values]
+        values = [v for i, v in polynomial_values]
+
+        N = self.fri.domain_length
+        # `indices` already contains each test's a AND b positions (from
+        # FRI's polynomial_values), so adding the +expansion shifts yields
+        # exactly the prover's sorted `quadrupled` multiset
+        duplicated = sorted(
+            indices + [(i + self.expansion_factor) % N for i in indices]
+        )
+        # paired leaves: leaf l covers positions l and l + N/2
+        leaf_indices = sorted({i % (N // 2) for i in duplicated})
+
+        depth = N.bit_length() - 2                    # paired tree: N/2 leaves
+
+        from ..commit.hashing import hash_paired_leaf
+
+        def pull_section(root, what: str) -> Dict[int, int]:
+            values = proof_stream.pull_typed(list)
+            proof = proof_stream.pull_typed(list)
+            if len(values) != len(duplicated) or not all(
+                isinstance(v, int) for v in values
+            ):
+                raise MalformedProof(f"{what}: bad opened-values section")
+            section = dict(zip(duplicated, values))
+            ld = {
+                l: hash_paired_leaf(section[l], section[l + N // 2])
+                for l in leaf_indices
+            }
+            if not verify_multi(root, depth, ld, proof):
+                raise VerificationError(f"{what}: Merkle multiproof failed")
+            return section
+
+        leafs: List[Dict[int, int]] = []
+        for r in range(R):
+            leafs.append(
+                pull_section(boundary_quotient_roots[r], f"boundary quotient {r}")
+            )
+
+        randomizer = pull_section(randomizer_root, "randomizer")
+        zerofier_leafs = pull_section(transition_zerofier_root, "transition zerofier")
+
+        zerofiers = self.boundary_zerofiers(boundary)
+        interpolants = self.boundary_interpolants(boundary)
+        tq_bounds = self.transition_quotient_degree_bounds(transition_constraints)
+        bq_bounds = self.boundary_quotient_degree_bounds(
+            randomized_trace_length, boundary
+        )
+        max_degree = self.max_degree(transition_constraints)
+
+        if air_index_evaluator is not None:
+            bad = self._verify_combinations_batched(
+                indices, values, leafs, randomizer, zerofier_leafs, weights,
+                zerofiers, interpolants, tq_bounds, bq_bounds, max_degree,
+                air_index_evaluator,
+            )
+            if bad is not None:
+                raise VerificationError(
+                    f"combination mismatch at query index {bad}"
+                )
+            if proof_stream.read_index != len(proof_stream.objects):
+                raise MalformedProof("trailing transcript objects")
+            return True
+
+        for i in range(len(indices)):
+            current_index = indices[i]
+            domain_current = self.generator * (self.omega ** current_index)
+            next_index = (current_index + self.expansion_factor) % N
+            domain_next = self.generator * (self.omega ** next_index)
+
+            current_trace = []
+            next_trace = []
+            for s in range(R):
+                bq_cur = FieldElement(leafs[s][current_index], self.field)
+                bq_next = FieldElement(leafs[s][next_index], self.field)
+                current_trace.append(
+                    bq_cur * zerofiers[s].evaluate(domain_current)
+                    + interpolants[s].evaluate(domain_current)
+                )
+                next_trace.append(
+                    bq_next * zerofiers[s].evaluate(domain_next)
+                    + interpolants[s].evaluate(domain_next)
+                )
+
+            if air_point_evaluator is not None:
+                transition_values = air_point_evaluator(
+                    domain_current, current_trace, next_trace
+                )
+            else:
+                point = [domain_current] + current_trace + next_trace
+                transition_values = [
+                    tc.evaluate(point) for tc in transition_constraints
+                ]
+
+            terms: List[FieldElement] = [
+                FieldElement(randomizer[current_index], self.field)
+            ]
+            tz_value = FieldElement(zerofier_leafs[current_index], self.field)
+            for s in range(len(transition_values)):
+                quotient = transition_values[s] / tz_value
+                terms.append(quotient)
+                terms.append(quotient * (domain_current ** (max_degree - tq_bounds[s])))
+            for s in range(R):
+                bqv = FieldElement(leafs[s][current_index], self.field)
+                terms.append(bqv)
+                terms.append(bqv * (domain_current ** (max_degree - bq_bounds[s])))
+
+            combination = reduce(
+                lambda a, b: a + b,
+                [terms[j] * weights[j] for j in range(len(terms))],
+                self.field.zero(),
+            )
+            if combination.value != values[i]:
+                raise VerificationError(
+                    f"combination mismatch at query index {current_index}"
+                )
+
+        # anti-malleability: every transcript object must have been consumed
+        # (trailing junk would give distinct valid encodings of one proof)
+        if proof_stream.read_index != len(proof_stream.objects):
+            raise MalformedProof("trailing transcript objects")
+
+        return True
+
+    # ------------------------------------------------------------------
+    # batched verifier core: all K query checks through the device
+    # kernels instead of K iterations of host scalar field arithmetic
+    # ------------------------------------------------------------------
+    def _verify_combinations_batched(
+        self, indices, claimed, leafs, randomizer, zerofier_leafs, weights,
+        zerofiers, interpolants, tq_bounds, bq_bounds, max_degree,
+        air_index_evaluator,
+    ) -> Optional[int]:
+        """Returns the first mismatching query index, or None if all K
+        combination values check out."""
+        R = self.num_registers
+        N = self.fri.domain_length
+        K = len(indices)
+        dev = self.device
+        next_indices = [(i + self.expansion_factor) % N for i in indices]
+
+        # ONE upload: every opened value + the query points, concatenated
+        flat: List[int] = []
+        for s in range(R):
+            flat.extend(leafs[s][i] for i in indices)
+            flat.extend(leafs[s][i] for i in next_indices)
+        flat.extend(randomizer[i] for i in indices)
+        flat.extend(zerofier_leafs[i] for i in indices)
+        g, w = self.generator.value, self.omega.value
+        flat.extend(g * pow(w, i, P) % P for i in indices)
+        flat.extend(g * pow(w, i, P) % P for i in next_indices)
+        vals = device_from_ints(flat, dev)                        # (L, (2R+4)K)
+
+        w_dev = torch.stack([mont_const(wv.value, dev) for wv in weights])
+        tq_sh = tuple(max_degree - b for b in tq_bounds)
+        bq_sh = tuple(max_degree - b for b in bq_bounds)
+        idx_dev = torch.tensor(indices, dtype=torch.int64, device=dev)
+
+        combo = _verify_core(
+            vals, self._stack_coeffs(zerofiers), self._stack_coeffs(interpolants),
+            w_dev, idx_dev, air_index_evaluator, R, K, tq_sh, bq_sh,
+        )
+        got = ints_from_device(combo)
+        for i in range(K):
+            if got[i] != claimed[i]:
+                return indices[i]
+        return None
+
+
+def _verify_core(vals, bz, ip, weights, idx, air_index_evaluator, R, K, tq_sh, bq_sh):
+    """Batched combination recomputation at K query points.
+
+    vals: (L, (2R+4)K) Montgomery: per register K current + K next
+    boundary-quotient openings, then K randomizer, K zerofier openings,
+    K current points, K next points.
+    """
+    parts = [vals[..., i * K : (i + 1) * K] for i in range(2 * R + 4)]
+    bq_cur = torch.stack(parts[0:2 * R:2])                    # (R, L, K)
+    bq_next = torch.stack(parts[1:2 * R:2])
+    rand_cur = parts[2 * R]
+    tz_cur = parts[2 * R + 1]
+    x_cur = parts[2 * R + 2].contiguous()
+    x_next = parts[2 * R + 3].contiguous()
+
+    # coeffs (R, L, D) at points (L, K) -> (R, L, K)
+    poly_eval = NTT.evaluate_domain_horner
+    cur_trace = F.add(F.mont_mul(bq_cur, poly_eval(bz, x_cur)), poly_eval(ip, x_cur))
+    next_trace = F.add(F.mont_mul(bq_next, poly_eval(bz, x_next)), poly_eval(ip, x_next))
+    constraints = air_index_evaluator(idx, cur_trace, next_trace)  # (C, L, K)
+    tq = F.mont_mul(constraints, F.batch_inv(tz_cur))
+
+    terms = [rand_cur]
+    for s, e in enumerate(tq_sh):
+        terms.append(tq[s])
+        terms.append(F.mont_mul(tq[s], F.mont_pow(x_cur, e)))
+    for s, e in enumerate(bq_sh):
+        terms.append(bq_cur[s])
+        terms.append(F.mont_mul(bq_cur[s], F.mont_pow(x_cur, e)))
+    return F.weighted_sum(torch.stack(terms), weights)
+
+
+def _boundary_tables_core(bz: torch.Tensor, ip: torch.Tensor, x_lde: torch.Tensor):
+    """(R, L, D) boundary zerofier/interpolant coefficients -> their
+    (R, L, N) FRI-domain codewords (zerofiers inverted)."""
+    return (
+        F.batch_inv(NTT.evaluate_domain_horner(bz, x_lde)),
+        NTT.evaluate_domain_horner(ip, x_lde),
+    )
+
+
+def _bq_core(trace_lde, interp, inv_bz):
+    """Boundary quotients: (trace - interpolant) / zerofier, pointwise."""
+    return F.mont_mul(F.sub(trace_lde, interp), inv_bz)
+
+
+def _air_quotient_fn(air_evaluator, expansion_factor: int):
+    """AIR quotient for a model evaluator: shift the trace by one cycle (a
+    roll by the expansion factor), evaluate the constraints pointwise and
+    divide by the transition zerofier."""
+
+    def fn(x_lde, trace_lde, inv_tz):
+        next_lde = torch.roll(trace_lde, -expansion_factor, dims=-1)
+        return F.mont_mul(air_evaluator(x_lde, trace_lde, next_lde), inv_tz)
+
+    return fn
+
+
+def _combination_core(rand_lde, tq_lde, bq_lde, tq_shift, bq_shift, weights):
+    """Weighted combination codeword.
+
+    weights: (W, L, 1) in transcript order [w_rand, (w_tq, w_tq_sh)*C,
+    (w_bq, w_bq_sh)*R]; tq_lde/tq_shift (C, L, N); bq_lde/bq_shift
+    (R, L, N)."""
+    C = tq_lde.shape[0]
+    R = bq_lde.shape[0]
+    terms = [F.mont_mul(rand_lde, weights[0])]
+    idx = 1
+    for s in range(C):
+        ws = F.add(weights[idx], F.mont_mul(weights[idx + 1], tq_shift[s]))
+        terms.append(F.mont_mul(tq_lde[s], ws))
+        idx += 2
+    for s in range(R):
+        ws = F.add(weights[idx], F.mont_mul(weights[idx + 1], bq_shift[s]))
+        terms.append(F.mont_mul(bq_lde[s], ws))
+        idx += 2
+    return F.field_sum(torch.stack(terms))

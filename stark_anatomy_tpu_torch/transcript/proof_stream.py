@@ -1,0 +1,88 @@
+"""ProofStream: the prover<->verifier channel and Fiat-Shamir transform.
+
+Semantics match the reference (ip.py:4-30): an append-only object list
+with a read index; the prover's challenge hashes the WHOLE transcript,
+the verifier's challenge hashes only the prefix it has read — that
+asymmetry is what makes the non-interactive replay line up.
+
+Improvements over the reference: incremental serialization (the reference
+re-pickles the entire transcript for every challenge, ip.py:21-25) and a
+deterministic binary codec instead of pickle.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+from ..commit.hashing import blake2s_digest, shake256
+from ..errors import MalformedProof
+from . import codec
+
+
+class ProofStream:
+    def __init__(self):
+        self.objects: List[codec.TranscriptObject] = []
+        self.read_index = 0
+        # Incremental serialization: _buf is always codec.serialize(objects);
+        # _offsets[i] = byte length of the serialized prefix of i objects.
+        self._buf = bytearray(codec.MAGIC)
+        self._offsets = [len(codec.MAGIC)]
+        self.prefix = b""  # domain-separation prefix (see SignatureProofStream)
+
+    def push(self, obj: codec.TranscriptObject) -> None:
+        self.objects.append(obj)
+        self._buf += codec.encode_obj(obj)
+        self._offsets.append(len(self._buf))
+
+    def pull(self) -> codec.TranscriptObject:
+        if self.read_index >= len(self.objects):
+            raise MalformedProof("transcript exhausted: pull past end")
+        obj = self.objects[self.read_index]
+        self.read_index += 1
+        return obj
+
+    def pull_typed(self, expected_type) -> codec.TranscriptObject:
+        """Pull and type-check (malformed proofs can swap object kinds)."""
+        obj = self.pull()
+        if not isinstance(obj, expected_type):
+            raise MalformedProof(
+                f"transcript object {self.read_index - 1}: expected "
+                f"{getattr(expected_type, '__name__', expected_type)}, "
+                f"got {type(obj).__name__}"
+            )
+        return obj
+
+    def serialize(self) -> bytes:
+        return bytes(self._buf)
+
+    def prover_fiat_shamir(self, num_bytes: int = 32) -> bytes:
+        return shake256(self.prefix + bytes(self._buf), num_bytes)
+
+    def verifier_fiat_shamir(self, num_bytes: int = 32) -> bytes:
+        return shake256(
+            self.prefix + bytes(self._buf[: self._offsets[self.read_index]]), num_bytes
+        )
+
+    @classmethod
+    def deserialize(cls, data: bytes) -> "ProofStream":
+        ps = cls()
+        for obj in codec.deserialize(data):
+            ps.push(obj)
+        return ps
+
+
+class SignatureProofStream(ProofStream):
+    """Document-bound transcript: Fiat-Shamir is prefixed with
+    blake2s(document) (reference: rpsss.py:7-22)."""
+
+    def __init__(self, document: bytes):
+        super().__init__()
+        self.document = document
+        self.prefix = blake2s_digest(bytes(document))
+
+    @classmethod
+    def deserialize_with_document(cls, data: bytes, document: bytes) -> "SignatureProofStream":
+        ps = cls(document)
+        for obj in codec.deserialize(data):
+            ps.push(obj)
+        return ps

@@ -1,0 +1,65 @@
+"""Host <-> device conversion of field-element tensors.
+
+The port of stark_anatomy_tpu/utils/convert.py.  Device layout is
+LIMB-FIRST (..., NLIMBS, n) int32 in Montgomery form; the host side is
+canonical Python ints (transcripts) or element-major canonical numpy limb
+rows (Merkle leaves).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from ..field import ops as F
+from ..field.limbs import LIMB_BITS, NLIMBS, R
+from ..field.scalar import P
+
+
+def device_from_ints(values: Sequence[int], device) -> torch.Tensor:
+    """Canonical ints -> Montgomery limb tensor (NLIMBS, n) on ``device``."""
+    out = np.empty((NLIMBS, len(values)), dtype=np.int32)
+    if len(values):
+        rem = np.array([v % P * R % P for v in values], dtype=object)
+        for k in range(NLIMBS):
+            out[k] = (rem & 0xFFFF).astype(np.int64)
+            rem = rem >> LIMB_BITS
+    return torch.from_numpy(out).to(device)
+
+
+def ints_from_device(arr: torch.Tensor) -> List[int]:
+    """Montgomery limb tensor (..., NLIMBS, n) -> canonical ints, flattened
+    in element order."""
+    canon = F.from_mont(arr).cpu().numpy()
+    flat = np.moveaxis(canon, -2, 0).reshape(NLIMBS, -1)
+    acc = flat[NLIMBS - 1].astype(object)
+    for k in range(NLIMBS - 2, -1, -1):
+        acc = (acc << LIMB_BITS) | flat[k].astype(object)
+    return [int(v) for v in acc]
+
+
+def canonical_np(arr: torch.Tensor) -> np.ndarray:
+    """Montgomery tensor (..., NLIMBS, n) -> canonical ELEMENT-MAJOR numpy
+    limb array (..., n, NLIMBS) uint32: the row-per-element layout the
+    Merkle leaves hash."""
+    canon = F.from_mont(arr).cpu().numpy().astype(np.uint32)
+    return np.ascontiguousarray(np.moveaxis(canon, -2, -1))
+
+
+def int_from_row(row: np.ndarray) -> int:
+    """One canonical element-major limb row (NLIMBS,) -> Python int."""
+    acc = 0
+    for k in range(NLIMBS - 1, -1, -1):
+        acc = (acc << LIMB_BITS) | int(row[k])
+    return acc
+
+
+def gather_rows(rows, indices) -> List[int]:
+    """Canonical ints at ``indices`` of a layer held as element-major numpy
+    rows or as a host int list (the port of
+    stark_anatomy_tpu/commit/device_merkle.py:gather_rows for host rows)."""
+    if isinstance(rows, list):
+        return [rows[i] for i in indices]
+    return [int_from_row(rows[i]) for i in indices]

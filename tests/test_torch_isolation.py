@@ -1,0 +1,65 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+its entry points run on the card unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "stark_anatomy_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "stark_anatomy_tpu")
+
+
+def port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(PORT):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = (
+        "import sys\n"
+        "import stark_anatomy_tpu_torch.models.rpsss\n"
+        "import stark_anatomy_tpu_torch.protocols.fast_stark\n"
+        "import stark_anatomy_tpu_torch.parallel.batch_prover\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(','.join(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("path", port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_import_in_the_port_or_chip_smoke(path):
+    assert not set(imported_roots(path)) & set(FORBIDDEN)
+
+
+def test_entry_point_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
+    from stark_anatomy_tpu_torch.config import resolve_device
+    from stark_anatomy_tpu_torch.models.rpsss import FastRPSSS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FastRPSSS()
+    assert resolve_device("cpu") == torch.device("cpu")
