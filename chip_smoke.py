@@ -11,12 +11,19 @@ Phases (each prints its wall seconds):
 1. kernels against their plain versions: H0 ``mont_mul`` and H1
    ``add_mod``/``sub_mod`` on the card against the plain PyTorch versions
    on CPU copies of the same inputs, exact equality, at the main path's
-   shapes and a ragged one; then each kernel's time per launch beside the
-   plain version's time on the card and the bound;
+   shapes and a ragged one; the H0 ladder ``mont_pow`` the same way for
+   the exponents 1, 2, 3, ALPHA_INV, p - 2 and a seeded 128-bit one at
+   (2, 8, 1), (8, 4096) and the main shape; then each kernel's time per
+   launch (CUDA events) and device time (profiler) beside the plain
+   version's time on the card and the bound, and the same for the ladder
+   and ``mont_mul`` at each ladder shape;
 2. main path: ``FastRPSSS()`` keygen, sign and verify on the card at the
    production parameters; verify must accept, and reject a forged
    document and another key's pk; every kernel's launch count must rise;
-   then one warm-up and three timed signs and verifies;
+   then one warm-up and three timed signs and verifies; the Rescue trace
+   alone, with its launches per kernel (270 ``mont_mul`` and 27
+   ``mont_pow``); a device profile of one sign (torch.profiler) and a
+   host one (cProfile, the prover's main steps);
 3. card against CPU: one seeded sign on the card and one with
    ``device="cpu"`` must give identical bytes, and each must verify the
    other's signature.
@@ -43,16 +50,26 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 INT32_OPS_PER_S = 67e12     # H100 SXM 32-bit rate outside the tensor cores
 SHAPES = [(1, 2, 8, 4096), (8, 1024), (8, 1000)]
 MAIN_SHAPE = (1, 2, 8, 4096)
+RESCUE_SHAPE = (2, 8, 1)                 # the Rescue state: the ladder's main shape
+LADDER_SHAPES = [RESCUE_SHAPE, (8, 4096), MAIN_SHAPE]
+ALPHA_INV = 180331931428153586757283157844700080811
 DOC = b"chip smoke: FastRPSSS on the card"
 
 # what each kernel replaces in the JAX package, and 32-bit integer
-# operations per element (H0: 36 32x32->64 products, two words each;
-# H1: a 4-word add or subtract and the conditional correction)
+# operations per element (H0: 20 32x32->64 products, two words each, and
+# one 32-bit product, with p's sparse words; the ladder does one such
+# Montgomery product per square and per multiply; H1: a 4-word add or
+# subtract and the conditional correction)
+MUL_OPS = 41
 KERNEL_INFO = {
-    "mont_mul": ("stark_anatomy_tpu/field/pallas_kernels.py:114", 72),
+    "mont_mul": ("stark_anatomy_tpu/field/pallas_kernels.py:114", MUL_OPS),
+    "mont_pow": ("stark_anatomy_tpu/field/ops.py:343", None),
     "add_mod": ("stark_anatomy_tpu/field/limb_arith.py:62", 16),
     "sub_mod": ("stark_anatomy_tpu/field/limb_arith.py:68", 16),
 }
+# the profiler's kernel names
+PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
+                "add_mod": "AddMod", "sub_mod": "SubMod"}
 
 
 def det_urandom(seed: bytes):
@@ -115,24 +132,40 @@ def device_us(prof) -> dict:
     return out
 
 
-def profile_kernels(fns: dict, iters: int) -> dict:
-    """Device microseconds per launch of each kernel, by the profiler."""
+def profile_kernel(name: str, fn, iters: int):
+    """Device microseconds per launch of kernel ``name`` over ``iters``
+    calls of ``fn``, by the profiler; None if it saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for fn in fns.values():
-            for _ in range(iters):
-                fn()
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
-    seen = device_us(prof)
-    out = {}
-    for name, tag in (("mont_mul", "MontMul"), ("add_mod", "AddMod"), ("sub_mod", "SubMod")):
-        hits = [v for k, v in seen.items() if tag in k]
-        if hits:
-            out[name] = sum(us for _, us in hits) / sum(c for c, _ in hits)
-    return out
+    hits = [v for k, v in device_us(prof).items() if PROFILE_TAGS[name] in k]
+    if not hits:
+        return None
+    return sum(us for _, us in hits) / sum(c for c, _ in hits)
+
+
+def fmt_us(us) -> str:
+    return f"{us:.3f} us" if us is not None else "not measured"
+
+
+def bound_ms(numel: int, nbytes: int, ops_per_element: int):
+    """(least ms on the card, "bytes" or "operations") for work on
+    ``numel`` field elements that moves ``nbytes``."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = numel * ops_per_element / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def ladder_ops(exponent: int) -> int:
+    """32-bit operations per element of x^exponent: one product for each
+    square and each multiply of the ladder."""
+    return MUL_OPS * (exponent.bit_length() - 1 + bin(exponent).count("1") - 1)
 
 
 def profile_sign(sign) -> None:
@@ -161,10 +194,35 @@ def profile_sign(sign) -> None:
         print(f"  {us / 1e3:9.3f} ms  {count:6d} launches  {key[:90]}")
 
 
-def field_inputs(shape, seed: int):
+HOST_SPANS = ("trace_batch", "_phase1_impl", "from_limbs_paired", "_phase2_impl",
+              "prove_host", "open_multi")
+
+
+def host_profile_sign(sign) -> None:
+    """Where one sign's host time goes: cumulative seconds of the prover's
+    main steps under cProfile.  The profiler slows Python code, so the
+    shares are what to read, not the seconds."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    sign()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    total = max(ct for (_, _, _, ct, _) in stats.values())
+    spans = {}
+    for (path, _, func), (_, _, _, ct, _) in stats.items():
+        if func in HOST_SPANS and "stark_anatomy_tpu_torch" in path:
+            spans[func] = spans.get(func, 0.0) + ct
+    parts = ", ".join(f"{f} {spans[f]:.4f} s ({100 * spans[f] / total:.1f}%)" for f in HOST_SPANS if f in spans)
+    print(f"host profile of one sign (cProfile): total {total:.4f} s; {parts}")
+
+
+def field_inputs(shape, seed: int, special=None):
     """Two seeded limb tensors of ``shape`` (CPU) holding values in [0, p);
-    their first elements are 0, 1, p-1 and the Montgomery one (R mod p),
-    in rotated order."""
+    their first elements are ``special`` (by default 0, 1, p-1 and the
+    Montgomery one, R mod p), in rotated order."""
     import math
 
     import torch
@@ -174,7 +232,7 @@ def field_inputs(shape, seed: int):
 
     rng = random.Random(seed)
     count = math.prod(shape) // 8
-    special = [0, 1, P - 1, R % P]
+    special = list(special) if special is not None else [0, 1, P - 1, R % P]
     lead, n = tuple(shape[:-2]), shape[-1]
     out = []
     for rot in range(2):
@@ -195,6 +253,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field.scalar import P
     from stark_anatomy_tpu_torch.models.rescue_prime import hash_batch, trace_batch
     from stark_anatomy_tpu_torch.models.rpsss import FastRPSSS
     from stark_anatomy_tpu_torch.utils.convert import device_from_ints, ints_from_device
@@ -225,7 +284,7 @@ def main() -> int:
         a_cpu, _ = field_inputs(sa, 100 + i)
         _, b_cpu = field_inputs(sb, 200 + i)
         a, b = a_cpu.to(dev), b_cpu.to(dev)
-        for name in K.KERNELS:
+        for name in K.BINARY:
             got = getattr(K, name)(a, b)
             torch.cuda.synchronize()
             want = K.PLAIN[name](a_cpu, b_cpu)
@@ -236,6 +295,23 @@ def main() -> int:
             print(f"  {name} {sa} x {sb}: mismatched elements {mismatch}, max abs limb error {err}")
             worst_mismatch = max(worst_mismatch, mismatch)
             worst_err[name] = max(worst_err[name], err)
+    exponents = {"1": 1, "2": 2, "3": 3, "alpha_inv": ALPHA_INV, "p-2": P - 2,
+                 "random128": random.Random(5).getrandbits(128) | (1 << 127)}
+    for i, shape in enumerate(LADDER_SHAPES):
+        # the Rescue state holds two elements: one zero, one random
+        x_cpu, _ = field_inputs(shape, 300 + i, special=[0] if shape == RESCUE_SHAPE else None)
+        x = x_cpu.to(dev)
+        for label, e in exponents.items():
+            got = K.mont_pow(x, e)
+            torch.cuda.synchronize()
+            want = K.mont_pow_plain(x_cpu, e)
+            got = got.cpu()
+            assert got.shape == want.shape, ("mont_pow", got.shape, want.shape)
+            mismatch = int((got != want).any(dim=-2).sum())
+            err = int((got.long() - want.long()).abs().max())
+            print(f"  mont_pow {shape} e={label}: mismatched elements {mismatch}, max abs limb error {err}")
+            worst_mismatch = max(worst_mismatch, mismatch)
+            worst_err["mont_pow"] = max(worst_err["mont_pow"], err)
     print(f"max mismatch count: {worst_mismatch}")
     assert worst_mismatch == 0, "a kernel disagrees with its plain version"
 
@@ -244,16 +320,8 @@ def main() -> int:
     vec_out = [244180265933090377212304188905974087294, 89633745865384635541695204788332415101]
     assert ints_from_device(hash_batch(device_from_ints(vec_in, dev))) == vec_out
 
-    a, b = (x.to(dev) for x in field_inputs(MAIN_SHAPE, 7))
-    numel = a.numel() // 8
-    records = {}
-    for name in K.KERNELS:
-        kern, plain = getattr(K, name), K.PLAIN[name]
-        ms = time_launches(lambda: kern(a, b), 200)
-        plain_ms = time_launches(lambda: plain(a, b), 20)
-        bytes_ms = 3 * a.numel() * 4 / HBM_BYTES_PER_S * 1e3
-        ops_ms = numel * KERNEL_INFO[name][1] / INT32_OPS_PER_S * 1e3
-        records[name] = {
+    def record(name, ms, plain_ms, bound):
+        return {
             "name": name,
             "route": "cuda",
             "source": "stark_anatomy_tpu_torch/csrc/field.cu",
@@ -262,17 +330,45 @@ def main() -> int:
             "max_abs_err": worst_err[name],
             "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": bound[0],
+            "bound_by": bound[1],
             "library_ms": None,
         }
-        print(f"  {name} at {MAIN_SHAPE}: {ms:.6f} ms/launch, plain {plain_ms:.6f} ms, "
-              f"bound {records[name]['bound_ms']:.6f} ms ({records[name]['bound_by']})")
-    dev_us = profile_kernels({name: (lambda k=getattr(K, name): k(a, b)) for name in K.KERNELS}, 100)
-    for name in K.KERNELS:
-        got = dev_us.get(name)
-        print(f"  {name} device time per launch (profiler): "
-              + (f"{got:.3f} us" if got is not None else "not measured"))
+
+    a, b = (x.to(dev) for x in field_inputs(MAIN_SHAPE, 7))
+    numel = a.numel() // 8
+    records = {}
+    for name in K.BINARY:
+        kern, plain = getattr(K, name), K.PLAIN[name]
+        ms = time_launches(lambda: kern(a, b), 200)
+        plain_ms = time_launches(lambda: plain(a, b), 20)
+        records[name] = record(name, ms, plain_ms, bound_ms(numel, 3 * a.numel() * 4, KERNEL_INFO[name][1]))
+        got = profile_kernel(name, lambda: kern(a, b), 100)
+        print(f"  {name} at {MAIN_SHAPE}: {ms:.6f} ms/launch, device {fmt_us(got)}/launch, "
+              f"plain {plain_ms:.6f} ms, bound {records[name]['bound_ms']:.6f} ms "
+              f"({records[name]['bound_by']})")
+
+    # the ladder and the product it chains, at each ladder shape; the
+    # record is the Rescue S-box x^ALPHA_INV on the Rescue state
+    for i, shape in enumerate(LADDER_SHAPES):
+        x = field_inputs(shape, 400 + i)[0].to(dev)
+        numel = x.numel() // 8
+        ms = time_launches(lambda: K.mont_mul(x, x), 200)
+        plain_ms = time_launches(lambda: K.mont_mul_plain(x, x), 20)
+        bound = bound_ms(numel, 3 * x.numel() * 4, MUL_OPS)
+        got = profile_kernel("mont_mul", lambda: K.mont_mul(x, x), 100)
+        print(f"  mont_mul at {shape}: {ms:.6f} ms/launch, device {fmt_us(got)}/launch, "
+              f"plain {plain_ms:.6f} ms, bound {bound[0]:.9f} ms ({bound[1]})")
+        for label in ("alpha_inv", "p-2"):
+            e = exponents[label]
+            ms = time_launches(lambda: K.mont_pow(x, e), 100)
+            plain_ms = time_launches(lambda: K.mont_pow_plain(x, e), 3)
+            bound = bound_ms(numel, 2 * x.numel() * 4, ladder_ops(e))
+            got = profile_kernel("mont_pow", lambda: K.mont_pow(x, e), 50)
+            print(f"  mont_pow e={label} at {shape}: {ms:.6f} ms/launch, device {fmt_us(got)}/launch, "
+                  f"plain {plain_ms:.6f} ms, bound {bound[0]:.9f} ms ({bound[1]})")
+            if shape == RESCUE_SHAPE and label == "alpha_inv":
+                records["mont_pow"] = record("mont_pow", ms, plain_ms, bound)
     phase("1 kernels", t1)
 
     # -- phase 2: the main path ---------------------------------------------
@@ -312,17 +408,22 @@ def main() -> int:
     print(f"sign seconds (median of 3): {statistics.median(sign_s[1:]):.4f} {sign_s[1:]} on {smi}")
     print(f"verify seconds (median of 3): {statistics.median(verify_s[1:]):.4f} {verify_s[1:]} on {smi}")
     # the Rescue trace alone: 27 rounds on one 2-element state
-    trace_s = []
-    before = K.LAUNCHES["mont_mul"]
     sk_dev = device_from_ints([sk.value], dev)
+    K.reset_launch_counts()
+    trace_batch(sk_dev)
+    torch.cuda.synchronize()
+    trace_launches = dict(K.LAUNCHES)
+    print(f"launches in one trace_batch (B = 1): {trace_launches}")
+    assert trace_launches["mont_mul"] == 270 and trace_launches["mont_pow"] == 27, trace_launches
+    trace_s = []
     for _ in range(3):
         ts = time.perf_counter()
         trace_batch(sk_dev)
         torch.cuda.synchronize()
         trace_s.append(time.perf_counter() - ts)
-    print(f"rescue trace_batch seconds (median of 3): {statistics.median(trace_s):.4f}, "
-          f"{(K.LAUNCHES['mont_mul'] - before) // 3} mont_mul launches each")
+    print(f"rescue trace_batch seconds (median of 3): {statistics.median(trace_s):.4f} {trace_s} on {smi}")
     profile_sign(lambda: scheme.sign(sk, DOC))
+    host_profile_sign(lambda: scheme.sign(sk, DOC))
     phase("2 main path", t2)
 
     # -- phase 3: card against CPU, byte for byte ----------------------------

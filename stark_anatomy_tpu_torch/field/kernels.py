@@ -1,11 +1,13 @@
 """The field kernels written by hand for Hopper, with their plain versions.
 
 H0 ``mont_mul`` replaces the JAX package's only TPU kernel, K0
-(stark_anatomy_tpu/field/pallas_kernels.py:mont_mul_pallas_core).  H1
+(stark_anatomy_tpu/field/pallas_kernels.py:mont_mul_pallas_core), and H0
+``mont_pow`` runs a whole square-and-multiply ladder over it in one launch
+(in place of the jnp scan stark_anatomy_tpu/field/ops.py:mont_pow).  H1
 ``add_mod`` and ``sub_mod`` replace the jnp row functions
 field/limb_arith.py:add_mod_rows and sub_mod_rows.  The sources are
-csrc/field.cu; its header says what bounds each kernel and why the
-design is simple for now.
+csrc/field.cu; its header says what bounds each kernel and how the
+design answers it.
 
 Each wrapper takes int32 limb tensors (..., 8, n) in Montgomery form:
 * on a CPU tensor it runs the kernel's plain PyTorch version below;
@@ -30,7 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .limb_arith import add_mod_rows, carry_rows, cond_sub_p_rows, sub_mod_rows
-from .limbs import LIMB_BITS, MASK, NLIMBS, NPRIME, int_to_limbs
+from .limbs import LIMB_BITS, MASK, NLIMBS, NPRIME, R, int_to_limbs
 from .scalar import P
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -40,11 +42,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-KERNELS = ("mont_mul", "add_mod", "sub_mod")
+BINARY = ("mont_mul", "add_mod", "sub_mod")
+KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 build_log = ""          # nvcc's output (ptxas register use) of the last build
 _lib = None
+_fns: Dict[str, object] = {}    # kernel name -> its ctypes entry point
 
 
 def reset_launch_counts() -> None:
@@ -89,20 +93,32 @@ def build() -> str:
     return lib
 
 
+_BINARY_ARGTYPES = (
+    [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 8 + [ctypes.c_void_p, ctypes.c_int]
+)
+_POW_ARGTYPES = (
+    [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_uint64] * 2
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+)
+
+
 def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 8
-            + [ctypes.c_void_p, ctypes.c_int]
-        )
         for name in KERNELS:
             fn = getattr(lib, "stark_" + name)
-            fn.argtypes = argtypes
+            fn.argtypes = _POW_ARGTYPES if name == "mont_pow" else _BINARY_ARGTYPES
             fn.restype = ctypes.c_int
+            _fns[name] = fn
         _lib = lib
     return _lib
+
+
+def _entry(name: str):
+    if not _fns:
+        load()
+    return _fns[name]
 
 
 # ---------------------------------------------------------------------------
@@ -133,15 +149,35 @@ def operand_strides(
     return sb, nx, (1 if nx == n else 0)
 
 
-def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"{name}: operands must lie on one CUDA device, got {a.device} and {b.device}")
+Layout = Tuple[torch.Size, Optional[Tuple[int, int, int]], Optional[Tuple[int, int, int]]]
+
+
+def binary_layout(a: torch.Tensor, b: torch.Tensor) -> Layout:
+    """(output shape, strides of a, strides of b) for a binary kernel; a
+    stride triple is None where the kernel does not take that operand as
+    it lies (``operand_strides``)."""
     shape = torch.broadcast_shapes(a.shape, b.shape)
     if len(shape) < 2 or shape[-2] != NLIMBS:
-        raise ValueError(f"{name}: expected (..., {NLIMBS}, n) limb tensors, got {tuple(shape)}")
+        raise ValueError(f"expected (..., {NLIMBS}, n) limb tensors, got {tuple(shape)}")
     lead, n = tuple(shape[:-2]), shape[-1]
-    sa = operand_strides(a, lead, n)
-    sb = operand_strides(b, lead, n)
+    return shape, operand_strides(a, lead, n), operand_strides(b, lead, n)
+
+
+def _check_cuda(name: str, *xs: torch.Tensor) -> None:
+    if xs[0].device.type != "cuda" or any(x.device != xs[0].device for x in xs):
+        raise ValueError(f"{name}: operands must lie on one CUDA device, got "
+                         + " and ".join(str(x.device) for x in xs))
+
+
+def _finish(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor, layout: Optional[Layout]) -> torch.Tensor:
+    _check_cuda(name, a, b)
+    shape, sa, sb = layout if layout is not None else binary_layout(a, b)
     if sa is None or sb is None:
         raise ValueError(
             f"{name}: the kernel takes contiguous int32 (..., {NLIMBS}, n) operands "
@@ -151,36 +187,67 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty(shape, dtype=torch.int32, device=a.device)
     if out.numel() == 0:
         return out
-    fn = getattr(load(), "stark_" + name)
-    err = fn(
-        out.data_ptr(), a.data_ptr(), b.data_ptr(), math.prod(lead), n, *sa, *sb,
-        torch.cuda.current_stream(a.device).cuda_stream, a.device.index,
+    err = _entry(name)(
+        out.data_ptr(), a.data_ptr(), b.data_ptr(), math.prod(shape[:-2]), shape[-1],
+        *sa, *sb, torch.cuda.current_stream(a.device).cuda_stream, a.device.index,
     )
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
+    _finish(name, err)
     return out
 
 
-def _dispatch(name: str, plain, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _dispatch(name: str, plain, a: torch.Tensor, b: torch.Tensor,
+              layout: Optional[Layout]) -> torch.Tensor:
     if a.device.type == "cpu" and b.device.type == "cpu":
         return plain(a, b)
-    return _launch(name, a, b)
+    return _launch(name, a, b, layout)
 
 
-def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+# ``layout`` is ``binary_layout(a, b)`` where the caller has it already
+# (field/ops.py), so that a call checks its operands once.
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor, layout: Optional[Layout] = None) -> torch.Tensor:
     """H0: Montgomery product a*b*2^-128 mod p, elementwise."""
-    return _dispatch("mont_mul", mont_mul_plain, a, b)
+    return _dispatch("mont_mul", mont_mul_plain, a, b, layout)
 
 
-def add_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def add_mod(a: torch.Tensor, b: torch.Tensor, layout: Optional[Layout] = None) -> torch.Tensor:
     """H1: (a + b) mod p, elementwise."""
-    return _dispatch("add_mod", add_mod_plain, a, b)
+    return _dispatch("add_mod", add_mod_plain, a, b, layout)
 
 
-def sub_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def sub_mod(a: torch.Tensor, b: torch.Tensor, layout: Optional[Layout] = None) -> torch.Tensor:
     """H1: (a - b) mod p, elementwise."""
-    return _dispatch("sub_mod", sub_mod_plain, a, b)
+    return _dispatch("sub_mod", sub_mod_plain, a, b, layout)
+
+
+def exponent_words(exponent: int) -> Tuple[int, int, int]:
+    """(low 64 bits, high 64 bits, bit length) of an exponent the ladder
+    takes: 0 <= exponent < 2^128."""
+    if exponent < 0 or exponent >> 128:
+        raise ValueError(f"mont_pow: the exponent must lie in [0, 2^128), got {exponent}")
+    return exponent & ((1 << 64) - 1), exponent >> 64, exponent.bit_length()
+
+
+def mont_pow(x: torch.Tensor, exponent: int) -> torch.Tensor:
+    """H0 ladder: x^exponent in Montgomery form, elementwise, for a host
+    integer 0 <= exponent < 2^128 (exponent 0 gives the Montgomery one)."""
+    words = exponent_words(exponent)
+    if x.device.type == "cpu":
+        return mont_pow_plain(x, exponent)
+    _check_cuda("mont_pow", x)
+    if x.dtype != torch.int32 or x.dim() < 2 or x.shape[-2] != NLIMBS or not x.is_contiguous():
+        raise ValueError(f"mont_pow: the kernel takes a contiguous int32 (..., {NLIMBS}, n) "
+                         f"tensor; got {tuple(x.shape)} {x.dtype}")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    n = x.shape[-1]
+    err = _entry("mont_pow")(
+        out.data_ptr(), x.data_ptr(), math.prod(x.shape[:-2]), n, *words,
+        torch.cuda.current_stream(x.device).cuda_stream, x.device.index,
+    )
+    _finish("mont_pow", err)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +296,20 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, -2).to(torch.int32)
 
 
+def mont_pow_plain(x: torch.Tensor, exponent: int) -> torch.Tensor:
+    """Plain version of the ladder: left-to-right square and multiply over
+    ``mont_mul_plain``, from the top bit down (the JAX scan's order)."""
+    exponent_words(exponent)
+    if exponent == 0:
+        return _limb_col(R, x.device).to(torch.int32).expand(x.shape).clone()
+    acc = x.clone()
+    for bit in bin(exponent)[3:]:
+        acc = mont_mul_plain(acc, acc)
+        if bit == "1":
+            acc = mont_mul_plain(acc, x)
+    return acc
+
+
 def add_mod_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of H1's add (field/limb_arith.py:add_mod_rows)."""
     a, b = torch.broadcast_tensors(a, b)
@@ -243,4 +324,7 @@ def sub_mod_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, -2).to(torch.int32)
 
 
-PLAIN = {"mont_mul": mont_mul_plain, "add_mod": add_mod_plain, "sub_mod": sub_mod_plain}
+PLAIN = {
+    "mont_mul": mont_mul_plain, "mont_pow": mont_pow_plain,
+    "add_mod": add_mod_plain, "sub_mod": sub_mod_plain,
+}

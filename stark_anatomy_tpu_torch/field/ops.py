@@ -3,10 +3,10 @@
 LAYOUT: every field tensor is int32 of shape (..., NLIMBS, n), 16-bit
 limbs on the second-to-last axis, Montgomery form (x*2^128 mod p).
 
-``mont_mul``, ``add`` and ``sub`` go to the hand-written kernels
-(field/kernels.py): on a CUDA tensor they launch H0 and H1, on a CPU
-tensor the kernels' plain versions run.  Everything else here is PyTorch
-glue over those three.
+``mont_mul``, ``mont_pow``, ``add`` and ``sub`` go to the hand-written
+kernels (field/kernels.py): on a CUDA tensor they launch H0 and H1, on a
+CPU tensor the kernels' plain versions run.  Everything else here is
+PyTorch glue over those four.
 """
 
 from __future__ import annotations
@@ -37,20 +37,22 @@ def mont_const(value: int, device) -> torch.Tensor:
 
 
 def _fit(a: torch.Tensor, b: torch.Tensor):
-    """Operands in a form the kernels take.  A CUDA operand that neither
-    matches the output shape nor broadcasts a whole axis is expanded and
-    made contiguous here (CPU operands go to the plain versions as they
-    are)."""
+    """(a, b, layout): the operands in a form the kernels take, with the
+    kernels' layout of them, worked out once for the call.  A CUDA operand
+    that neither matches the output shape nor broadcasts a whole axis is
+    expanded and made contiguous here.  CPU operands go to the plain
+    versions as they are, with no layout."""
     if a.device.type == "cpu":
-        return a, b
-    shape = torch.broadcast_shapes(a.shape, b.shape)
+        return a, b, None
+    shape, sa, sb = K.binary_layout(a, b)
     lead, n = tuple(shape[:-2]), shape[-1]
-    out = []
-    for x in (a, b):
-        if K.operand_strides(x, lead, n) is None:
-            x = x.to(torch.int32).expand(shape).contiguous()
-        out.append(x)
-    return out
+    if sa is None:
+        a = a.to(torch.int32).expand(shape).contiguous()
+        sa = K.operand_strides(a, lead, n)
+    if sb is None:
+        b = b.to(torch.int32).expand(shape).contiguous()
+        sb = K.operand_strides(b, lead, n)
+    return a, b, (shape, sa, sb)
 
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -109,16 +111,14 @@ def from_mont(a: torch.Tensor) -> torch.Tensor:
 
 
 def mont_pow(x: torch.Tensor, exponent: int) -> torch.Tensor:
-    """x^exponent for a host integer exponent, left-to-right square and
-    multiply (the value is the JAX scan's: both compute x^e exactly)."""
+    """x^exponent for a host integer exponent in [0, 2^128): one launch of
+    the H0 ladder, which squares and multiplies from the top bit down (the
+    value is the JAX scan's: both compute x^e exactly)."""
     if exponent == 0:
         return mont_one(x.shape[-1], x.shape[:-2], x.device).clone()
-    acc = x
-    for bit in bin(exponent)[3:]:
-        acc = mont_mul(acc, acc)
-        if bit == "1":
-            acc = mont_mul(acc, x)
-    return acc
+    if x.device.type != "cpu":
+        x = x.to(torch.int32).contiguous()
+    return K.mont_pow(x, exponent)
 
 
 def inv(x: torch.Tensor) -> torch.Tensor:

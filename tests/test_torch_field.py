@@ -113,6 +113,63 @@ def test_mont_pow_matches_jax(exponent):
     same(JF.mont_pow(jx, exponent), TF.mont_pow(tx, exponent))
 
 
+ALPHA_INV = 180331931428153586757283157844700080811        # Rescue's 1/3
+RANDOM_128 = int.from_bytes(np.random.default_rng(17).bytes(16), "little") | (1 << 127)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 1), (1, 8, 17)])
+@pytest.mark.parametrize("exponent", [0, 1, 2, 3, ALPHA_INV, P - 2, RANDOM_128],
+                         ids=["0", "1", "2", "3", "alpha_inv", "p-2", "random128"])
+def test_plain_ladder_matches_jax(exponent, shape):
+    """The ladder's plain version against the JAX scan, with zeros among
+    the elements (the last element of the first row; the special values
+    where the row is long enough)."""
+    x = limbs(shape, 18, special=shape[-1] >= 4)
+    x[0, :, -1] = 0
+    jx, tx = both(x)
+    same(JF.mont_pow(jx, exponent), K.mont_pow_plain(tx, exponent))
+
+
+@pytest.mark.parametrize("exponent", [0, 1, 2, 1 << 64, (1 << 64) - 1, ALPHA_INV, P - 2, (1 << 128) - 1])
+def test_exponent_words_round_trip(exponent):
+    lo, hi, nbits = K.exponent_words(exponent)
+    assert 0 <= lo < 1 << 64 and 0 <= hi < 1 << 64
+    assert lo | (hi << 64) == exponent and nbits == exponent.bit_length()
+
+
+@pytest.mark.parametrize("exponent", [-1, -(1 << 70), 1 << 128, (1 << 129) + 5])
+def test_ladder_refuses_exponents_out_of_range(exponent):
+    with pytest.raises(ValueError):
+        K.exponent_words(exponent)
+    with pytest.raises(ValueError):
+        K.mont_pow(torch.zeros(8, 2, dtype=torch.int32), exponent)
+
+
+def test_cpu_mont_pow_launches_nothing():
+    before = dict(K.LAUNCHES)
+    x = torch.from_numpy(limbs((2, 8, 1), 19, special=False).astype(np.int32))
+    K.mont_pow(x, ALPHA_INV)
+    TF.mont_pow(x, P - 2)
+    TF.batch_inv(x)
+    assert K.LAUNCHES == before
+
+
+def test_ops_check_each_operand_once(monkeypatch):
+    """field/ops.py works out the kernels' layout once per call and hands
+    it to the wrapper, which keeps every check that raises."""
+    calls = []
+    strides = K.operand_strides
+    monkeypatch.setattr(K, "operand_strides", lambda *a: calls.append(1) or strides(*a))
+    a = torch.empty(2, 8, 4, dtype=torch.int32, device="meta")
+    for fn in (TF.mont_mul, TF.add, TF.sub):
+        calls.clear()
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(a, a)
+        assert len(calls) == 2
+    with pytest.raises(ValueError, match="limb tensors"):
+        TF.mont_mul(torch.empty(2, 7, 4, dtype=torch.int32, device="meta"), a[:, :7])
+
+
 @pytest.mark.parametrize("k", [1, 2, 5, 8])
 def test_field_sum_and_weighted_sum_match_jax(k):
     (jt, tt), (jw, tw) = both(limbs((k, 8, 50), 12)), both(limbs((k, 8, 1), 13, special=False))
@@ -168,6 +225,8 @@ def test_wrappers_never_fall_back_off_the_cpu():
     for fn in (K.mont_mul, K.add_mod, K.sub_mod):
         with pytest.raises(ValueError):
             fn(a, a)
+    with pytest.raises(ValueError):
+        K.mont_pow(a, 3)
 
 
 def test_build_is_one_nvcc_call_into_the_build_dir(monkeypatch, tmp_path):

@@ -1,0 +1,150 @@
+#!/usr/bin/env python3
+"""Time the PyTorch/CUDA port's field ops and main path on one CUDA card.
+
+    python3 tools/port_compare.py [--root DIR]
+
+Imports ``stark_anatomy_tpu_torch`` from DIR (default: this checkout),
+builds its kernels, and prints one JSON line:
+
+* ``ops_ms``: milliseconds per call through ``field/ops.py`` (CUDA events
+  over a run of calls after a warm-up; the least of 5 runs, since the
+  host's other load only adds), wrapper and launch included: ``mont_mul`` and ``add``
+  at the Rescue state (2, 8, 1) and at (1, 2, 8, 4096), and ``mont_pow``
+  with Rescue's ALPHA_INV at (2, 8, 1);
+* ``pow_device_us``: device microseconds per ``F.mont_pow(x, ALPHA_INV)``
+  at (2, 8, 1), all its kernels summed (torch.profiler; null if the
+  profiler saw no device time);
+* ``trace_s``: ``trace_batch`` on one key (B = 1), median of 5 warm runs;
+* ``sign_s`` and ``verify_s``: ``FastRPSSS()`` sign and verify at the
+  production parameters, median of 5 warm runs after one warm-up;
+* the card's name and power limit (nvidia-smi).
+
+To compare two commits, unpack the older one into a git-ignored
+directory (``git archive``) and run, in one command on one card:
+parent, change, change, parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ALPHA_INV = 180331931428153586757283157844700080811
+
+
+def ms_per_call(fn, iters: int, runs: int = 5) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / iters)
+    return min(out)
+
+
+def device_us_per_call(fn, iters: int):
+    """Device microseconds per call of ``fn``, over every kernel it
+    launches (torch.profiler); None if the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            total += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    return total / iters if total > 0 else None
+
+
+def median_s(fn, runs: int = 5) -> float:
+    import torch
+
+    out = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t)
+    return statistics.median(out)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("port_compare: CUDA is not available", file=sys.stderr)
+        return 1
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import stark_anatomy_tpu_torch
+    from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field import ops as F
+    from stark_anatomy_tpu_torch.models.rescue_prime import trace_batch
+    from stark_anatomy_tpu_torch.models.rpsss import FastRPSSS
+    from stark_anatomy_tpu_torch.utils.convert import device_from_ints
+
+    assert os.path.dirname(os.path.dirname(os.path.abspath(stark_anatomy_tpu_torch.__file__))) == root
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    K.load()
+
+    gen = torch.Generator().manual_seed(0)
+    ops_ms, pow_device_us = {}, None
+    for shape in ((2, 8, 1), (1, 2, 8, 4096)):
+        x = torch.randint(0, 1 << 16, shape, generator=gen, dtype=torch.int32)
+        x[..., 7, :] &= 0x3FFF                  # limb 7 below p's: every value < p
+        x = x.to(dev)
+        ops_ms[f"mont_mul {shape}"] = ms_per_call(lambda: F.mont_mul(x, x), 200)
+        ops_ms[f"add {shape}"] = ms_per_call(lambda: F.add(x, x), 200)
+        if shape == (2, 8, 1):
+            ops_ms[f"mont_pow ALPHA_INV {shape}"] = ms_per_call(lambda: F.mont_pow(x, ALPHA_INV), 10)
+            pow_device_us = device_us_per_call(lambda: F.mont_pow(x, ALPHA_INV), 20)
+
+    scheme = FastRPSSS()
+    sk, pk = scheme.keygen()
+    sk_dev = device_from_ints([sk.value], dev)
+    trace_batch(sk_dev)
+    trace_s = median_s(lambda: trace_batch(sk_dev))
+    doc = b"port compare"
+    sig = scheme.sign(sk, doc)
+    assert scheme.verify(pk, doc, sig)
+    sign_s = median_s(lambda: scheme.sign(sk, doc))
+    verify_s = median_s(lambda: scheme.verify(pk, doc, sig))
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=10, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(json.dumps({
+        "root": root, "card": smi, "ops_ms": ops_ms, "pow_device_us": pow_device_us,
+        "trace_s": trace_s, "sign_s": sign_s, "verify_s": verify_s,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
