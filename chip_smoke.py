@@ -13,17 +13,21 @@ Phases (each prints its wall seconds):
    on CPU copies of the same inputs, exact equality, at the main path's
    shapes and a ragged one; the H0 ladder ``mont_pow`` the same way for
    the exponents 1, 2, 3, ALPHA_INV, p - 2 and a seeded 128-bit one at
-   (2, 8, 1), (8, 4096) and the main shape; then each kernel's time per
-   launch (CUDA events) and device time (profiler) beside the plain
-   version's time on the card and the bound, and the same for the ladder
-   and ``mont_mul`` at each ladder shape;
+   (2, 8, 1), (8, 4096) and the main shape; H2 ``rescue_perm`` (trace
+   and hash) for B = 1, 7 and 4096, random and special states, and the
+   Rescue known-answer vectors; H3 ``ntt`` for n = 1, 2, 1024, 4096 and
+   8192, batch 1, 2 and 3, forward and inverse, with and without scales;
+   then each kernel's time per launch (CUDA events) and device time
+   (profiler) beside the plain version's time on the card and the bound,
+   and the same for the ladder and ``mont_mul`` at each ladder shape;
 2. main path: ``FastRPSSS()`` keygen, sign and verify on the card at the
    production parameters; verify must accept, and reject a forged
-   document and another key's pk; every kernel's launch count must rise;
-   then one warm-up and three timed signs and verifies; the Rescue trace
-   alone, with its launches per kernel (270 ``mont_mul`` and 27
-   ``mont_pow``); a device profile of one sign (torch.profiler) and a
-   host one (cProfile, the prover's main steps);
+   document and another key's pk; every kernel must be launched in that
+   sign; then one warm-up and three timed signs and verifies,
+   and the kernel launches of one warm sign; the Rescue trace alone,
+   which must be one ``rescue_perm`` launch and no H0/H1 launch; a device
+   profile of one sign (torch.profiler) and a host one (cProfile, the
+   prover's main steps);
 3. card against CPU: one seeded sign on the card and one with
    ``device="cpu"`` must give identical bytes, and each must verify the
    other's signature.
@@ -61,15 +65,22 @@ DOC = b"chip smoke: FastRPSSS on the card"
 # Montgomery product per square and per multiply; H1: a 4-word add or
 # subtract and the conditional correction)
 MUL_OPS = 41
+ADD_OPS = 16
 KERNEL_INFO = {
     "mont_mul": ("stark_anatomy_tpu/field/pallas_kernels.py:114", MUL_OPS),
     "mont_pow": ("stark_anatomy_tpu/field/ops.py:343", None),
-    "add_mod": ("stark_anatomy_tpu/field/limb_arith.py:62", 16),
-    "sub_mod": ("stark_anatomy_tpu/field/limb_arith.py:68", 16),
+    "add_mod": ("stark_anatomy_tpu/field/limb_arith.py:62", ADD_OPS),
+    "sub_mod": ("stark_anatomy_tpu/field/limb_arith.py:68", ADD_OPS),
+    "rescue_perm": ("stark_anatomy_tpu/models/rescue_prime.py:175", None),
+    "ntt": ("stark_anatomy_tpu/ops/ntt.py:79", None),
 }
 # the profiler's kernel names
 PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
-                "add_mod": "AddMod", "sub_mod": "SubMod"}
+                "add_mod": "AddMod", "sub_mod": "SubMod",
+                "rescue_perm": "rescue_kernel", "ntt": "ntt_kernel"}
+RESCUE_BATCHES = (1, 7, 4096)
+NTT_SIZES = (1, 2, 1024, 4096, 8192)
+NTT_MAIN = (2, 8, 4096)          # the LDE: coset_evaluate of two trace columns
 
 
 def det_urandom(seed: bytes):
@@ -98,11 +109,11 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_launches(fn, iters: int) -> float:
+def time_launches(fn, iters: int, warm: int = 3) -> float:
     """Milliseconds per call of ``fn`` on the card (CUDA events)."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -166,6 +177,22 @@ def ladder_ops(exponent: int) -> int:
     """32-bit operations per element of x^exponent: one product for each
     square and each multiply of the ladder."""
     return MUL_OPS * (exponent.bit_length() - 1 + bin(exponent).count("1") - 1)
+
+
+def rescue_ops(batch: int) -> int:
+    """32-bit operations of the permutation on ``batch`` states: per round
+    and element x^3 (2 products) and x^ALPHA_INV, two 2x2 MDS (4 products
+    and 2 adds each) and 2 constant adds per element."""
+    per_round = 2 * (2 * MUL_OPS) + 2 * ladder_ops(ALPHA_INV) + 2 * (4 * MUL_OPS + 2 * ADD_OPS) + 4 * ADD_OPS
+    return batch * 27 * per_round
+
+
+def ntt_ops(batch: int, n: int, scales: int, inverse: bool) -> int:
+    """32-bit operations of ``batch`` transforms of n points: n/2 log2(n)
+    butterflies (a product, an add, a subtract), and a product per point
+    for each scale and for 1/n."""
+    butterflies = n // 2 * (n.bit_length() - 1) * (MUL_OPS + 2 * ADD_OPS)
+    return batch * (butterflies + n * MUL_OPS * (scales + (inverse and n > 1)))
 
 
 def profile_sign(sign) -> None:
@@ -254,7 +281,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stark_anatomy_tpu_torch.field import kernels as K
     from stark_anatomy_tpu_torch.field.scalar import P
-    from stark_anatomy_tpu_torch.models.rescue_prime import hash_batch, trace_batch
+    from stark_anatomy_tpu_torch.models.rescue_prime import hash_batch, permutation_tables, trace_batch
+    from stark_anatomy_tpu_torch.ops.domain import DOMAINS
     from stark_anatomy_tpu_torch.models.rpsss import FastRPSSS
     from stark_anatomy_tpu_torch.utils.convert import device_from_ints, ints_from_device
 
@@ -312,6 +340,51 @@ def main() -> int:
             print(f"  mont_pow {shape} e={label}: mismatched elements {mismatch}, max abs limb error {err}")
             worst_mismatch = max(worst_mismatch, mismatch)
             worst_err["mont_pow"] = max(worst_err["mont_pow"], err)
+
+    def compare(name, label, got, want):
+        nonlocal worst_mismatch
+        got, want = got.cpu(), want.cpu()
+        assert got.shape == want.shape, (name, label, got.shape, want.shape)
+        mismatch = int((got != want).any(dim=-2).sum())
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        print(f"  {name} {label}: mismatched elements {mismatch}, max abs limb error {err}")
+        worst_mismatch = max(worst_mismatch, mismatch)
+        worst_err[name] = max(worst_err[name], err)
+
+    # H2, trace and hash, against the plain permutation (on CPU copies; on
+    # the card for the large batch, where the CPU would take minutes).  A
+    # "special" state starts with 0, 1, p - 1 and R mod p and is random
+    # after them, so only B = 1 needs a random state of its own.
+    rescue_tabs = {d: (*permutation_tables(d), ALPHA_INV) for d in ("cpu", dev)}
+    for i, batch in enumerate(RESCUE_BATCHES):
+        for label, special in (("random", []), ("special", None))[batch > 1:]:
+            state_cpu = field_inputs((2, 8, batch), 500 + i, special=special)[0]
+            ref_dev = "cpu" if batch < 100 else dev
+            want = K.rescue_permutation_plain(state_cpu.to(ref_dev), *rescue_tabs[ref_dev], True)
+            state = state_cpu.to(dev)
+            got_trace = K.rescue_permutation(state, *rescue_tabs[dev], True)
+            got_hash = K.rescue_permutation(state, *rescue_tabs[dev], False)
+            torch.cuda.synchronize()
+            compare("rescue_perm", f"trace B={batch} {label}", got_trace, want)
+            compare("rescue_perm", f"hash B={batch} {label}", got_hash, want[-1])
+    # H3 against the plain transform on CPU copies: a scale on the input
+    # shared by the batch, one on the output per row
+    for i, n in enumerate(NTT_SIZES):
+        for batch in (1, 2, 3):
+            x_cpu, post_cpu = field_inputs((batch, 8, n), 600 + 10 * i + batch)
+            pre_cpu = field_inputs((8, n), 700 + 10 * i + batch)[0]
+            for inverse in (False, True):
+                key = "inv_powers" if inverse else "fwd_powers"
+                tabs_cpu = [DOMAINS.get(n, "cpu")[key], DOMAINS.get(n, "cpu")["n_inv"] if inverse and n > 1 else None]
+                tabs = [DOMAINS.get(n, dev)[key], DOMAINS.get(n, dev)["n_inv"] if inverse and n > 1 else None]
+                for scaled in (False, True):
+                    scales_cpu = [pre_cpu, post_cpu] if scaled else [None, None]
+                    scales = [t if t is None else t.to(dev) for t in scales_cpu]
+                    got = K.ntt(x_cpu.to(dev), *tabs, *scales)
+                    torch.cuda.synchronize()
+                    want = K.ntt_plain(x_cpu, *tabs_cpu, *scales_cpu)
+                    label = f"n={n} batch={batch} {'inverse' if inverse else 'forward'}{' scaled' if scaled else ''}"
+                    compare("ntt", label, got, want)
     print(f"max mismatch count: {worst_mismatch}")
     assert worst_mismatch == 0, "a kernel disagrees with its plain version"
 
@@ -319,6 +392,7 @@ def main() -> int:
     vec_in = [1, 57322816861100832358702415967512842988]
     vec_out = [244180265933090377212304188905974087294, 89633745865384635541695204788332415101]
     assert ints_from_device(hash_batch(device_from_ints(vec_in, dev))) == vec_out
+    assert ints_from_device(trace_batch(device_from_ints(vec_in, dev))[-1, 0]) == vec_out
 
     def record(name, ms, plain_ms, bound):
         return {
@@ -369,6 +443,50 @@ def main() -> int:
                   f"plain {plain_ms:.6f} ms, bound {bound[0]:.9f} ms ({bound[1]})")
             if shape == RESCUE_SHAPE and label == "alpha_inv":
                 records["mont_pow"] = record("mont_pow", ms, plain_ms, bound)
+
+    # H2 at each batch, trace and hash; the record is the main path's
+    # trace_batch of one key (B = 1), the only case whose plain version is
+    # timed (one call on the card takes seconds).  Bytes: the states in,
+    # the trace or the final states out, the constant tables once.
+    table_bytes = (27 * 2 * 2 + 2 * 2) * 8 * 4
+    for batch in RESCUE_BATCHES:
+        state = field_inputs((2, 8, batch), 800 + batch)[0].to(dev)
+        for collect in (True, False):
+            out_states = 28 if collect else 1
+            bound = bound_ms(1, (1 + out_states) * 2 * 8 * batch * 4 + table_bytes, rescue_ops(batch))
+            ms = time_launches(lambda: K.rescue_permutation(state, *rescue_tabs[dev], collect), 20)
+            got = profile_kernel("rescue_perm", lambda: K.rescue_permutation(state, *rescue_tabs[dev], collect), 5)
+            line = (f"  rescue_perm {'trace' if collect else 'hash'} B={batch}: {ms:.6f} ms/launch, "
+                    f"device {fmt_us(got)}/launch, bound {bound[0]:.9f} ms ({bound[1]})")
+            if batch == 1 and collect:
+                plain_ms = time_launches(lambda: K.rescue_permutation_plain(state, *rescue_tabs[dev], collect),
+                                         1, warm=0)
+                records["rescue_perm"] = record("rescue_perm", ms, plain_ms, bound)
+                line += f", plain {plain_ms:.3f} ms"
+            print(line)
+
+    # H3 at the main path's shapes; the record is the LDE, a forward
+    # transform of two rows with the coset pre-scale.  Bytes: the input,
+    # the output, each scale table and 1/n once, and the n/2 twiddles
+    # omega^j, j < n/2, the kernel reads from the power table.
+    for shape, inverse, scaled in ((NTT_MAIN, False, True), ((2, 8, 1024), True, False),
+                                   (NTT_MAIN, True, True), ((3, 8, 8192), False, True)):
+        batch, n = shape[0], shape[-1]
+        x, post = (t.to(dev) for t in field_inputs(shape, 900 + n))
+        pre = field_inputs((8, n), 901 + n)[0].to(dev)
+        dom = DOMAINS.get(n, dev)
+        args = (dom["inv_powers" if inverse else "fwd_powers"], dom["n_inv"] if inverse else None,
+                pre if scaled and not inverse else None, post[0] if scaled and inverse else None)
+        nbytes = ((2 * batch + scaled) * n + n // 2 + inverse) * 8 * 4
+        bound = bound_ms(1, nbytes, ntt_ops(batch, n, int(scaled), inverse))
+        ms = time_launches(lambda: K.ntt(x, *args), 200)
+        got = profile_kernel("ntt", lambda: K.ntt(x, *args), 50)
+        plain_ms = time_launches(lambda: K.ntt_plain(x, *args), 3, warm=1)
+        print(f"  ntt {shape} {'inverse' if inverse else 'forward'}{' scaled' if scaled else ''}: "
+              f"{ms:.6f} ms/launch, device {fmt_us(got)}/launch, plain {plain_ms:.6f} ms, "
+              f"bound {bound[0]:.9f} ms ({bound[1]})")
+        if shape == NTT_MAIN and not inverse:
+            records["ntt"] = record("ntt", ms, plain_ms, bound)
     phase("1 kernels", t1)
 
     # -- phase 2: the main path ---------------------------------------------
@@ -407,14 +525,18 @@ def main() -> int:
         verify_s.append(time.perf_counter() - tv)
     print(f"sign seconds (median of 3): {statistics.median(sign_s[1:]):.4f} {sign_s[1:]} on {smi}")
     print(f"verify seconds (median of 3): {statistics.median(verify_s[1:]):.4f} {verify_s[1:]} on {smi}")
-    # the Rescue trace alone: 27 rounds on one 2-element state
+    K.reset_launch_counts()
+    scheme.sign(sk, DOC)
+    torch.cuda.synchronize()
+    print(f"kernel launches in one warm sign: {sum(K.LAUNCHES.values())} {dict(K.LAUNCHES)}")
+    # the Rescue trace alone: 27 rounds on one 2-element state, one launch
     sk_dev = device_from_ints([sk.value], dev)
     K.reset_launch_counts()
     trace_batch(sk_dev)
     torch.cuda.synchronize()
     trace_launches = dict(K.LAUNCHES)
     print(f"launches in one trace_batch (B = 1): {trace_launches}")
-    assert trace_launches["mont_mul"] == 270 and trace_launches["mont_pow"] == 27, trace_launches
+    assert trace_launches == {**{name: 0 for name in K.KERNELS}, "rescue_perm": 1}, trace_launches
     trace_s = []
     for _ in range(3):
         ts = time.perf_counter()

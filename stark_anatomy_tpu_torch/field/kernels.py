@@ -5,9 +5,12 @@ H0 ``mont_mul`` replaces the JAX package's only TPU kernel, K0
 ``mont_pow`` runs a whole square-and-multiply ladder over it in one launch
 (in place of the jnp scan stark_anatomy_tpu/field/ops.py:mont_pow).  H1
 ``add_mod`` and ``sub_mod`` replace the jnp row functions
-field/limb_arith.py:add_mod_rows and sub_mod_rows.  The sources are
-csrc/field.cu; its header says what bounds each kernel and how the
-design answers it.
+field/limb_arith.py:add_mod_rows and sub_mod_rows.  H2
+``rescue_permutation`` runs the whole Rescue-Prime permutation in one
+launch (stark_anatomy_tpu/models/rescue_prime.py:_permutation_scan), and
+H3 ``ntt`` a whole NTT of up to 8192 points in one launch
+(stark_anatomy_tpu/ops/ntt.py:ntt_core).  The sources are csrc/field.cu;
+its header says what bounds each kernel and how the design answers it.
 
 Each wrapper takes int32 limb tensors (..., 8, n) in Montgomery form:
 * on a CPU tensor it runs the kernel's plain PyTorch version below;
@@ -43,7 +46,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 BINARY = ("mont_mul", "add_mod", "sub_mod")
-KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod")
+KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "rescue_perm", "ntt")
+RESCUE_M = 2            # Rescue-Prime state width
+RESCUE_ROUNDS = 27
+NTT_MAX = 8192          # H3 holds a whole transform in one block's shared memory
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 build_log = ""          # nvcc's output (ptxas register use) of the last build
@@ -96,10 +102,15 @@ def build() -> str:
 _BINARY_ARGTYPES = (
     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 8 + [ctypes.c_void_p, ctypes.c_int]
 )
-_POW_ARGTYPES = (
-    [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_uint64] * 2
-    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-)
+_ARGTYPES = {
+    "mont_pow": [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_uint64] * 2
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
+    "rescue_perm": [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
+    + [ctypes.c_uint64] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int],
+    "ntt": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 2
+    + [ctypes.c_int64] * 3 + [ctypes.c_void_p] + [ctypes.c_int64] * 3
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int],
+}
 
 
 def load() -> ctypes.CDLL:
@@ -108,7 +119,7 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         for name in KERNELS:
             fn = getattr(lib, "stark_" + name)
-            fn.argtypes = _POW_ARGTYPES if name == "mont_pow" else _BINARY_ARGTYPES
+            fn.argtypes = _ARGTYPES.get(name, _BINARY_ARGTYPES)
             fn.restype = ctypes.c_int
             _fns[name] = fn
         _lib = lib
@@ -169,6 +180,12 @@ def _check_cuda(name: str, *xs: torch.Tensor) -> None:
                          + " and ".join(str(x.device) for x in xs))
 
 
+def _stream(x: torch.Tensor) -> Tuple[int, int]:
+    """(current stream, device index) of a CUDA tensor: the last two
+    arguments of every entry point."""
+    return torch.cuda.current_stream(x.device).cuda_stream, x.device.index
+
+
 def _finish(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
@@ -189,7 +206,7 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, layout: Optional[Layout
         return out
     err = _entry(name)(
         out.data_ptr(), a.data_ptr(), b.data_ptr(), math.prod(shape[:-2]), shape[-1],
-        *sa, *sb, torch.cuda.current_stream(a.device).cuda_stream, a.device.index,
+        *sa, *sb, *_stream(a),
     )
     _finish(name, err)
     return out
@@ -243,10 +260,104 @@ def mont_pow(x: torch.Tensor, exponent: int) -> torch.Tensor:
         return out
     n = x.shape[-1]
     err = _entry("mont_pow")(
-        out.data_ptr(), x.data_ptr(), math.prod(x.shape[:-2]), n, *words,
-        torch.cuda.current_stream(x.device).cuda_stream, x.device.index,
+        out.data_ptr(), x.data_ptr(), math.prod(x.shape[:-2]), n, *words, *_stream(x),
     )
     _finish("mont_pow", err)
+    return out
+
+
+def _check_table(name: str, table: torch.Tensor, shape: Tuple[int, ...]) -> None:
+    if table.dtype != torch.int32 or tuple(table.shape) != shape or not table.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous int32 {shape} table; "
+                         f"got {tuple(table.shape)} {table.dtype}")
+
+
+def rescue_permutation(state: torch.Tensor, rc: torch.Tensor, mds: torch.Tensor,
+                       alpha_inv: int, collect_trace: bool) -> torch.Tensor:
+    """H2: the 27-round Rescue-Prime permutation of (m, 8, B) Montgomery
+    states, m = 2.  ``rc`` holds the round constants (N, 2, m, 8, 1) (round
+    r adds [r, 0] after its forward half, [r, 1] after its backward half),
+    ``mds`` the MDS matrix (m, m, 8, 1), both in Montgomery form, and the
+    backward S-box is x^alpha_inv.  Returns every state from the input on,
+    (N+1, m, 8, B), if ``collect_trace``; else the final states (m, 8, B)."""
+    if state.device.type == "cpu":
+        return rescue_permutation_plain(state, rc, mds, alpha_inv, collect_trace)
+    _check_cuda("rescue_perm", state, rc, mds)
+    if (state.dtype != torch.int32 or tuple(state.shape[:-1]) != (RESCUE_M, NLIMBS)
+            or not state.is_contiguous()):
+        raise ValueError(f"rescue_perm: the kernel takes a contiguous int32 ({RESCUE_M}, "
+                         f"{NLIMBS}, B) state; got {tuple(state.shape)} {state.dtype}")
+    _check_table("rescue_perm: rc", rc, (RESCUE_ROUNDS, 2, RESCUE_M, NLIMBS, 1))
+    _check_table("rescue_perm: mds", mds, (RESCUE_M, RESCUE_M, NLIMBS, 1))
+    lead = (RESCUE_ROUNDS + 1,) if collect_trace else ()
+    out = torch.empty(lead + tuple(state.shape), dtype=torch.int32, device=state.device)
+    if out.numel() == 0:
+        return out
+    err = _entry("rescue_perm")(
+        out.data_ptr(), state.data_ptr(), state.shape[-1], rc.data_ptr(), mds.data_ptr(),
+        *exponent_words(alpha_inv), int(collect_trace), *_stream(state),
+    )
+    _finish("rescue_perm", err)
+    return out
+
+
+def ntt_layout(values: torch.Tensor) -> Tuple[int, int]:
+    """(batch, log2 n) of a (..., 8, n) input H3 takes: contiguous int32,
+    n a power of two with 1 <= n <= NTT_MAX.  Raises ValueError for any
+    other input."""
+    if values.dtype != torch.int32 or values.dim() < 2 or values.shape[-2] != NLIMBS:
+        raise ValueError(f"ntt: the kernel takes int32 (..., {NLIMBS}, n) limb tensors; "
+                         f"got {tuple(values.shape)} {values.dtype}")
+    n = values.shape[-1]
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"ntt: the length must be a power of two, got {n}")
+    if n > NTT_MAX:
+        raise ValueError(f"ntt: the one-block kernel takes n <= {NTT_MAX} (its shared "
+                         f"memory holds the whole transform); got n = {n}")
+    if not values.is_contiguous():
+        raise ValueError("ntt: the kernel takes a contiguous input")
+    return math.prod(values.shape[:-2]), n.bit_length() - 1
+
+
+def _scale_args(name: str, scale: Optional[torch.Tensor], lead, n: int):
+    """(pointer or None, sb, sl, se) of an optional scale operand."""
+    if scale is None:
+        return None, 0, 0, 0
+    strides = operand_strides(scale, lead, n)
+    if strides is None:
+        raise ValueError(f"ntt: {name} must be a contiguous int32 (..., {NLIMBS}, {n}) table "
+                         f"that matches or broadcasts the input; got {tuple(scale.shape)} {scale.dtype}")
+    return scale.data_ptr(), *strides
+
+
+def ntt(values: torch.Tensor, powers: torch.Tensor, n_inv: Optional[torch.Tensor] = None,
+        scale_pre: Optional[torch.Tensor] = None,
+        scale_post: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """H3: a radix-2 NTT over the last axis of (..., 8, n) Montgomery values,
+    batched over the leading axes.  ``powers`` is the (8, n) table w^j of a
+    primitive n-th root w (the inverse's: w^-j), ``n_inv`` an optional (8, 1)
+    factor (1/n for the inverse), and the scales optional tables on the
+    input and the output:
+        out_k = post_k * n_inv * sum_j pre_j * x_j * w^(j k)."""
+    if values.device.type == "cpu":
+        return ntt_plain(values, powers, n_inv, scale_pre, scale_post)
+    _check_cuda("ntt", *(t for t in (values, powers, n_inv, scale_pre, scale_post) if t is not None))
+    batch, log_n = ntt_layout(values)
+    n = values.shape[-1]
+    lead = tuple(values.shape[:-2])
+    _check_table("ntt: powers", powers, (NLIMBS, n))
+    if n_inv is not None:
+        _check_table("ntt: n_inv", n_inv, (NLIMBS, 1))
+    pre = _scale_args("scale_pre", scale_pre, lead, n)
+    post = _scale_args("scale_post", scale_post, lead, n)
+    out = torch.empty_like(values)
+    if out.numel() == 0:
+        return out
+    err = _entry("ntt")(
+        out.data_ptr(), values.data_ptr(), batch, log_n, powers.data_ptr(), *pre, *post,
+        None if n_inv is None else n_inv.data_ptr(), *_stream(values),
+    )
+    _finish("ntt", err)
     return out
 
 
@@ -324,7 +435,85 @@ def sub_mod_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, -2).to(torch.int32)
 
 
+def _mds_plain(state: torch.Tensor, mds: torch.Tensor) -> torch.Tensor:
+    """(..., m, 8, n) states times the (m, m, 8, 1) MDS matrix."""
+    rows = []
+    for i in range(RESCUE_M):
+        acc = mont_mul_plain(state[..., 0, :, :], mds[i, 0])
+        for j in range(1, RESCUE_M):
+            acc = add_mod_plain(acc, mont_mul_plain(state[..., j, :, :], mds[i, j]))
+        rows.append(acc)
+    return torch.stack(rows, dim=-3)
+
+
+def rescue_permutation_plain(state: torch.Tensor, rc: torch.Tensor, mds: torch.Tensor,
+                             alpha_inv: int, collect_trace: bool) -> torch.Tensor:
+    """Plain version of H2: the rounds of the JAX scan
+    (stark_anatomy_tpu/models/rescue_prime.py:_permutation_scan) over the
+    plain field functions."""
+    states = [state]
+    for r in range(rc.shape[0]):
+        # forward half-round: x^3, MDS, constants
+        state = mont_mul_plain(mont_mul_plain(state, state), state)
+        state = add_mod_plain(_mds_plain(state, mds), rc[r, 0])
+        # backward half-round: x^(1/3) = x^alpha_inv, MDS, constants
+        state = mont_pow_plain(state, alpha_inv)
+        state = add_mod_plain(_mds_plain(state, mds), rc[r, 1])
+        states.append(state)
+    return torch.stack(states) if collect_trace else state
+
+
+_BITREV: Dict[tuple, torch.Tensor] = {}
+
+
+def _bitrev(n: int, device: torch.device) -> torch.Tensor:
+    """Index array of the bit-reversal permutation of range(n)."""
+    key = (n, device)
+    if key not in _BITREV:
+        bits = n.bit_length() - 1
+        idx = torch.arange(n, device=device)
+        rev = torch.zeros_like(idx)
+        for b in range(bits):
+            rev |= ((idx >> b) & 1) << (bits - 1 - b)
+        _BITREV[key] = rev
+    return _BITREV[key]
+
+
+def ntt_plain(values: torch.Tensor, powers: torch.Tensor, n_inv: Optional[torch.Tensor] = None,
+              scale_pre: Optional[torch.Tensor] = None,
+              scale_post: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of H3: iterative radix-2 Cooley-Tukey over bit-reversed
+    input.  Each stage gathers the even and odd halves of every butterfly
+    block, t = v * w^(j n/(2m)), then u + t and u - t, interleaved back."""
+    n = values.shape[-1]
+    x = values if scale_pre is None else mont_mul_plain(values, scale_pre)
+    if n > 1:
+        lead = x.shape[:-2]
+        batch = math.prod(lead)
+        x = x.index_select(-1, _bitrev(n, x.device)).reshape(batch, NLIMBS, n)
+        j = torch.arange(n // 2, device=x.device)
+        m = 1
+        while m < n:
+            w = powers.index_select(-1, (j % m) * (n // (2 * m)))
+            blocks = n // (2 * m)
+            x5 = x.view(batch, NLIMBS, blocks, 2, m)
+            u = x5[:, :, :, 0, :].reshape(batch, NLIMBS, n // 2)
+            v = x5[:, :, :, 1, :].reshape(batch, NLIMBS, n // 2)
+            t = mont_mul_plain(v, w)
+            lo = add_mod_plain(u, t).view(batch, NLIMBS, blocks, 1, m)
+            hi = sub_mod_plain(u, t).view(batch, NLIMBS, blocks, 1, m)
+            x = torch.cat([lo, hi], dim=3).view(batch, NLIMBS, n)
+            m *= 2
+        x = x.reshape(lead + (NLIMBS, n))
+    if n_inv is not None:
+        x = mont_mul_plain(x, n_inv)
+    if scale_post is not None:
+        x = mont_mul_plain(x, scale_post)
+    return x
+
+
 PLAIN = {
     "mont_mul": mont_mul_plain, "mont_pow": mont_pow_plain,
     "add_mod": add_mod_plain, "sub_mod": sub_mod_plain,
+    "rescue_perm": rescue_permutation_plain, "ntt": ntt_plain,
 }

@@ -7,9 +7,10 @@ arithmetization trick that keeps the AIR at degree 3.
 
 Device parts, over the field kernels:
 * :func:`hash_batch` / :func:`trace_batch` -- the permutation over a batch
-  of inputs, a Python loop over the 27 rounds (the JAX package's
-  lax.scan, ``_permutation_scan``); the x^(1/3) S-box is a 128-bit square
-  and multiply, the dominant per-round cost.
+  of inputs (the JAX package's lax.scan, ``_permutation_scan``): one
+  launch of H2 (field/kernels.py:rescue_permutation) on the card, its
+  plain version over the rounds on the CPU; the x^(1/3) S-box is a
+  128-bit square and multiply, the dominant per-round cost.
 * :func:`_rescue_air_kernel` -- the pointwise AIR on LDE codewords, used by
   the prover and the batched verifier.
 """
@@ -20,8 +21,9 @@ from typing import List
 
 import torch
 
+from ..field import kernels as K
 from ..field import ops as F
-from ..field.limbs import NLIMBS, R, int_to_limbs
+from ..field.limbs import NLIMBS
 from ..field.scalar import Field, FieldElement, P
 from ..poly.multivariate import MPolynomial
 from ..poly.univariate import Polynomial
@@ -147,58 +149,43 @@ def _mont_matrix(rows, device) -> torch.Tensor:
     )
 
 
-def _round_constants(device) -> torch.Tensor:
-    """(N, 2, m, NLIMBS, 1): per round the forward and backward constants."""
-    vals = [
-        [
-            [int_to_limbs(ROUND_CONSTANTS[2 * r * M + half + i] * R % P) for i in range(M)]
-            for half in (0, M)
-        ]
-        for r in range(N_ROUNDS)
-    ]
-    return torch.tensor(vals, dtype=torch.int32, device=device).unsqueeze(-1)
+_PERMUTATION_TABLES = {}
 
 
-def _mds_mul(state: torch.Tensor, mds: torch.Tensor) -> torch.Tensor:
-    """state: (..., m, NLIMBS, n); 2x2 MDS matrix multiply."""
-    rows = []
-    for i in range(M):
-        acc = F.mont_mul(state[..., 0, :, :], mds[i, 0])
-        for j in range(1, M):
-            acc = F.add(acc, F.mont_mul(state[..., j, :, :], mds[i, j]))
-        rows.append(acc)
-    return torch.stack(rows, dim=-3)
+def permutation_tables(device):
+    """(round constants (N, 2, m, NLIMBS, 1), MDS (m, m, NLIMBS, 1)) in
+    Montgomery form, the tables H2 takes, cached per device.  Round r adds
+    [r, 0] after its forward half and [r, 1] after its backward half."""
+    device = torch.device(device)
+    if device not in _PERMUTATION_TABLES:
+        rc = _mont_matrix(
+            [[ROUND_CONSTANTS[2 * r * M + half + i] for i in range(M)]
+             for r in range(N_ROUNDS) for half in (0, M)],
+            device,
+        ).reshape(N_ROUNDS, 2, M, NLIMBS, 1)
+        _PERMUTATION_TABLES[device] = (rc, _mont_matrix(MDS, device))
+    return _PERMUTATION_TABLES[device]
 
 
-def _permutation(state: torch.Tensor, collect_trace: bool):
-    """27 rounds on (m, NLIMBS, B) states; returns (final, [states])."""
-    rc = _round_constants(state.device)
-    mds = _mont_matrix(MDS, state.device)
-    states = []
-    for r in range(N_ROUNDS):
-        # forward half-round
-        state = F.mont_mul(F.mont_mul(state, state), state)        # x^3
-        state = F.add(_mds_mul(state, mds), rc[r, 0])
-        # backward half-round: x^(1/3) = x^ALPHA_INV
-        state = F.mont_pow(state, ALPHA_INV)
-        state = F.add(_mds_mul(state, mds), rc[r, 1])
-        if collect_trace:
-            states.append(state)
-    return state, states
+def _permute(state: torch.Tensor, collect_trace: bool) -> torch.Tensor:
+    rc, mds = permutation_tables(state.device)
+    return K.rescue_permutation(state, rc, mds, ALPHA_INV, collect_trace)
+
+
+def _initial_state(inputs: torch.Tensor) -> torch.Tensor:
+    """(NLIMBS, B) inputs -> (m, NLIMBS, B) states: the input absorbed into
+    the rate, the capacity zero."""
+    return torch.stack([inputs, torch.zeros_like(inputs)], dim=-3)
 
 
 def hash_batch(inputs: torch.Tensor) -> torch.Tensor:
     """Batched Rescue-Prime hash: (NLIMBS, B) mont inputs -> (NLIMBS, B)."""
-    state = torch.stack([inputs, torch.zeros_like(inputs)], dim=-3)
-    final, _ = _permutation(state, collect_trace=False)
-    return final[..., 0, :, :]
+    return _permute(_initial_state(inputs), collect_trace=False)[..., 0, :, :]
 
 
 def trace_batch(inputs: torch.Tensor) -> torch.Tensor:
     """Batched execution trace: (NLIMBS, B) -> (N+1, m, NLIMBS, B)."""
-    state = torch.stack([inputs, torch.zeros_like(inputs)], dim=-3)
-    _, states = _permutation(state, collect_trace=True)
-    return torch.stack([state] + states)
+    return _permute(_initial_state(inputs), collect_trace=True)
 
 
 def _rescue_air_kernel(trace_lde, next_lde, c1_lde, c2_lde, mds, mds_inv):

@@ -1,5 +1,5 @@
-"""Evaluation-domain tables: root-of-unity powers, bit reversal, coset
-powers.  The port of stark_anatomy_tpu/ops/domain.py.
+"""Evaluation-domain tables: root-of-unity powers and coset powers.  The
+port of stark_anatomy_tpu/ops/domain.py.
 
 Power tables are built on the tensor's device by doubling,
 powers[2^k + i] = powers[2^k] * powers[i]: log2(n) Montgomery multiplies
@@ -12,7 +12,6 @@ from __future__ import annotations
 import functools
 from typing import Dict, Tuple
 
-import numpy as np
 import torch
 
 from ..field import ops as F
@@ -32,19 +31,9 @@ def power_table(base: int, n: int, device) -> torch.Tensor:
     return table[..., :n].contiguous()
 
 
-def bit_reversal_permutation(n: int) -> np.ndarray:
-    """Index array mapping natural order -> bit-reversed order."""
-    bits = n.bit_length() - 1
-    idx = np.arange(n, dtype=np.int64)
-    rev = np.zeros_like(idx)
-    for b in range(bits):
-        rev |= ((idx >> b) & 1) << (bits - 1 - b)
-    return rev
-
-
 class _Domain:
     """Lazy per-(size, device) tables: ``fwd_powers`` and ``inv_powers``
-    (omega_n^{+-i}), ``bitrev`` and ``n_inv`` (1/n as a constant)."""
+    (omega_n^{+-i}) and ``n_inv`` (1/n as a constant)."""
 
     def __init__(self, n: int, device: torch.device):
         self.n = n
@@ -61,8 +50,6 @@ class _Domain:
                 v = power_table(self.omega, n, dev)
             elif key == "inv_powers":
                 v = power_table(self.omega_inv, n, dev)
-            elif key == "bitrev":
-                v = torch.from_numpy(bit_reversal_permutation(n)).to(dev)
             elif key == "n_inv":
                 v = mont_const(pow(n, P - 2, P), dev)
             else:

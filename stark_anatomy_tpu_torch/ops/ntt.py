@@ -1,4 +1,4 @@
-"""The NTT: one radix-2 transform over the field kernels.
+"""The NTT: one radix-2 transform, one launch of H3 on the card.
 
 The port of stark_anatomy_tpu/ops/ntt.py and ops/stage_ntt.py.  The JAX
 package keeps two lowerings (a scan over radix-2 stages and a staged
@@ -8,46 +8,25 @@ iterative radix-2 Cooley-Tukey transform serves every size, with the
 optional pre-scale (a coset table, for an LDE), post-scale (an inverse
 coset table, for interpolation) and 1/n folded into the inverse.
 
-Each stage is PyTorch index glue around the kernels: the even and odd
-halves of every butterfly block are gathered into contiguous tensors,
-t = v * w (H0), then u + t and u - t (H1), and the halves are
-interleaved back.
+:func:`ntt` hands the domain's tables to the H3 wrapper
+(field/kernels.py:ntt): on a CUDA tensor one launch runs the whole
+transform in one thread block per row (n <= 8192), on a CPU tensor its
+plain version ``kernels.ntt_plain`` runs the stages in PyTorch.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Dict, List, Optional, Tuple
+from typing import Optional
 
 import torch
 
+from ..field import kernels as K
 from ..field import ops as F
-from ..field.limbs import NLIMBS
 from .domain import DOMAINS, coset_table
 
 # crossover below which zerofiers are built with host big-int
 # accumulation (stark_anatomy_tpu/ops/ntt.py:HOST_ZEROFIER_MAX)
 HOST_ZEROFIER_MAX = 2048
-
-_TWIDDLES: Dict[Tuple[int, bool, torch.device], List[torch.Tensor]] = {}
-
-
-def _stage_twiddles(n: int, inverse: bool, device: torch.device) -> List[torch.Tensor]:
-    """Per stage (half-block m = 1, 2, ..., n/2) the (NLIMBS, n/2) table of
-    w^(j * n/(2m)) for position j of every block, tiled over the blocks."""
-    key = (n, inverse, device)
-    if key not in _TWIDDLES:
-        dom = DOMAINS.get(n, device)
-        powers = dom["inv_powers"] if inverse else dom["fwd_powers"]
-        tabs = []
-        m = 1
-        j = torch.arange(n // 2, device=device)
-        while m < n:
-            idx = (j % m) * (n // (2 * m))
-            tabs.append(powers.index_select(-1, idx).contiguous())
-            m *= 2
-        _TWIDDLES[key] = tabs
-    return _TWIDDLES[key]
 
 
 def ntt(
@@ -63,31 +42,13 @@ def ntt(
     (both (NLIMBS, n) tables or broadcastable).  Batched over leading axes.
     """
     n = values.shape[-1]
-    assert n & (n - 1) == 0, "NTT length must be a power of two"
-    device = values.device
-    x = values if scale_pre is None else F.mont_mul(values, scale_pre)
-    if n > 1:
-        dom = DOMAINS.get(n, device)
-        lead = x.shape[:-2]
-        batch = math.prod(lead)
-        x = x.index_select(-1, dom["bitrev"]).reshape(batch, NLIMBS, n)
-        m = 1
-        for w in _stage_twiddles(n, inverse, device):
-            blocks = n // (2 * m)
-            x5 = x.view(batch, NLIMBS, blocks, 2, m)
-            u = x5[:, :, :, 0, :].reshape(batch, NLIMBS, n // 2)
-            v = x5[:, :, :, 1, :].reshape(batch, NLIMBS, n // 2)
-            t = F.mont_mul(v, w)
-            lo = F.add(u, t).view(batch, NLIMBS, blocks, 1, m)
-            hi = F.sub(u, t).view(batch, NLIMBS, blocks, 1, m)
-            x = torch.cat([lo, hi], dim=3).view(batch, NLIMBS, n)
-            m *= 2
-        x = x.reshape(lead + (NLIMBS, n))
-        if inverse:
-            x = F.mont_mul(x, dom["n_inv"])
-    if scale_post is not None:
-        x = F.mont_mul(x, scale_post)
-    return x
+    assert n >= 1 and n & (n - 1) == 0, "NTT length must be a power of two"
+    dom = DOMAINS.get(n, values.device)
+    powers = dom["inv_powers"] if inverse else dom["fwd_powers"]
+    n_inv = dom["n_inv"] if inverse and n > 1 else None
+    if values.device.type != "cpu":
+        values = values.to(torch.int32).contiguous()
+    return K.ntt(values, powers, n_inv, scale_pre, scale_post)
 
 
 def intt(values: torch.Tensor) -> torch.Tensor:

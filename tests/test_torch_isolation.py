@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and
-its entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither jax nor the JAX package (nor
+do chip_smoke.py and the tools that drive it on the card), and its entry
+points run on the card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -14,8 +15,11 @@ PORT = os.path.join(ROOT, "stark_anatomy_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "stark_anatomy_tpu")
 
 
+PORT_TOOLS = ("tools/port_compare.py",)
+
+
 def port_sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")] + [os.path.join(ROOT, t) for t in PORT_TOOLS]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)

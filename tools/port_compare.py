@@ -15,8 +15,20 @@ builds its kernels, and prints one JSON line:
   at (2, 8, 1), all its kernels summed (torch.profiler; null if the
   profiler saw no device time);
 * ``trace_s``: ``trace_batch`` on one key (B = 1), median of 5 warm runs;
+* ``lde_ms``: ``coset_evaluate`` of (2, 8, 4096) coefficients on the FRI
+  domain (the prover's LDE), ms per call as for ``ops_ms``, and
+  ``lde_device_us``: its device microseconds, all its kernels summed;
 * ``sign_s`` and ``verify_s``: ``FastRPSSS()`` sign and verify at the
   production parameters, median of 5 warm runs after one warm-up;
+* ``sign_kernel_launches``: the port's own kernel launches in one warm
+  sign (its launch counters), and ``launches_by_caller``: for that sign
+  and for one verify, the calls of each kernel wrapper in
+  ``field/kernels.py`` by calling function (the first frame outside the
+  package's ``field/``, so ``F.mont_mul`` in ``ops/ntt.py:ntt`` counts
+  for ``ops/ntt.py:ntt``; each call is one launch); ``sign_device_launches`` and
+  ``sign_busy_share``: every kernel the profiler saw in one warm sign,
+  PyTorch's included, and the device's busy time over the wall time
+  under the profiler (null if it saw no device time);
 * the card's name and power limit (nvidia-smi).
 
 To compare two commits, unpack the older one into a git-ignored
@@ -27,6 +39,8 @@ parent, change, change, parent.
 from __future__ import annotations
 
 import argparse
+import collections
+import functools
 import json
 import os
 import statistics
@@ -35,6 +49,7 @@ import sys
 import time
 
 ALPHA_INV = 180331931428153586757283157844700080811
+WRAPPERS = ("mont_mul", "add_mod", "sub_mod", "mont_pow", "rescue_permutation", "ntt")
 
 
 def ms_per_call(fn, iters: int, runs: int = 5) -> float:
@@ -76,6 +91,61 @@ def device_us_per_call(fn, iters: int):
     return total / iters if total > 0 else None
 
 
+def device_profile(fn):
+    """(kernel launches, device busy seconds / wall seconds) of one call of
+    ``fn`` under torch.profiler; (None, None) if it saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches, busy_us = 0, 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                launches += e.count
+                busy_us += us
+    if not launches:
+        return None, None
+    return launches, busy_us / 1e6 / wall
+
+
+def launches_by_caller(K, pkg: str, fn) -> dict:
+    """{caller: {wrapper: calls}} of one call of ``fn``: every kernel
+    wrapper of the kernels module ``K`` that the tree has is counted under
+    the 'path:function' of the first frame outside ``pkg``'s field/."""
+    field = os.path.join(pkg, "field") + os.sep
+    counts = collections.defaultdict(collections.Counter)
+
+    def counting(name, wrapper):
+        @functools.wraps(wrapper)
+        def wrapped(*args, **kwargs):
+            frame = sys._getframe(1)
+            while frame is not None and frame.f_code.co_filename.startswith(field):
+                frame = frame.f_back
+            caller = "?" if frame is None else (
+                f"{os.path.relpath(frame.f_code.co_filename, pkg)}:{frame.f_code.co_name}")
+            counts[caller][name] += 1
+            return wrapper(*args, **kwargs)
+        return wrapped
+
+    saved = {name: getattr(K, name) for name in WRAPPERS if hasattr(K, name)}
+    for name, wrapper in saved.items():
+        setattr(K, name, counting(name, wrapper))
+    try:
+        fn()
+    finally:
+        for name, wrapper in saved.items():
+            setattr(K, name, wrapper)
+    return {c: dict(per) for c, per in sorted(counts.items(), key=lambda kv: -sum(kv[1].values()))}
+
+
 def median_s(fn, runs: int = 5) -> float:
     import torch
 
@@ -103,8 +173,10 @@ def main() -> int:
     import stark_anatomy_tpu_torch
     from stark_anatomy_tpu_torch.field import kernels as K
     from stark_anatomy_tpu_torch.field import ops as F
+    from stark_anatomy_tpu_torch.field.scalar import Field
     from stark_anatomy_tpu_torch.models.rescue_prime import trace_batch
     from stark_anatomy_tpu_torch.models.rpsss import FastRPSSS
+    from stark_anatomy_tpu_torch.ops import ntt as NTT
     from stark_anatomy_tpu_torch.utils.convert import device_from_ints
 
     assert os.path.dirname(os.path.dirname(os.path.abspath(stark_anatomy_tpu_torch.__file__))) == root
@@ -123,6 +195,10 @@ def main() -> int:
         if shape == (2, 8, 1):
             ops_ms[f"mont_pow ALPHA_INV {shape}"] = ms_per_call(lambda: F.mont_pow(x, ALPHA_INV), 10)
             pow_device_us = device_us_per_call(lambda: F.mont_pow(x, ALPHA_INV), 20)
+    coeffs = x.reshape(2, 8, 4096)               # the last shape's values
+    generator = Field.main().generator().value
+    lde_ms = ms_per_call(lambda: NTT.coset_evaluate(coeffs, generator, 4096), 50)
+    lde_device_us = device_us_per_call(lambda: NTT.coset_evaluate(coeffs, generator, 4096), 20)
 
     scheme = FastRPSSS()
     sk, pk = scheme.keygen()
@@ -134,6 +210,13 @@ def main() -> int:
     assert scheme.verify(pk, doc, sig)
     sign_s = median_s(lambda: scheme.sign(sk, doc))
     verify_s = median_s(lambda: scheme.verify(pk, doc, sig))
+    pkg = os.path.dirname(os.path.abspath(stark_anatomy_tpu_torch.__file__))
+    K.reset_launch_counts()
+    by_caller = {"sign": launches_by_caller(K, pkg, lambda: scheme.sign(sk, doc))}
+    torch.cuda.synchronize()
+    sign_kernel_launches = dict(K.LAUNCHES)
+    by_caller["verify"] = launches_by_caller(K, pkg, lambda: scheme.verify(pk, doc, sig))
+    sign_device_launches, sign_busy_share = device_profile(lambda: scheme.sign(sk, doc))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -141,7 +224,10 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(json.dumps({
         "root": root, "card": smi, "ops_ms": ops_ms, "pow_device_us": pow_device_us,
-        "trace_s": trace_s, "sign_s": sign_s, "verify_s": verify_s,
+        "trace_s": trace_s, "lde_ms": lde_ms, "lde_device_us": lde_device_us,
+        "sign_s": sign_s, "verify_s": verify_s,
+        "sign_kernel_launches": sign_kernel_launches, "launches_by_caller": by_caller,
+        "sign_device_launches": sign_device_launches, "sign_busy_share": sign_busy_share,
     }))
     return 0
 
