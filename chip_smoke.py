@@ -13,10 +13,13 @@ Phases (each prints its wall seconds):
    on CPU copies of the same inputs, exact equality, at the main path's
    shapes and a ragged one; the H0 ladder ``mont_pow`` the same way for
    the exponents 1, 2, 3, ALPHA_INV, p - 2 and a seeded 128-bit one at
-   (2, 8, 1), (8, 4096) and the main shape; H2 ``rescue_perm`` (trace
-   and hash) for B = 1, 7 and 4096, random and special states, and the
-   Rescue known-answer vectors; H3 ``ntt`` for n = 1, 2, 1024, 4096 and
-   8192, batch 1, 2 and 3, forward and inverse, with and without scales;
+   (2, 8, 1), (8, 4096) and the main shape (e = 2 is the squaring
+   product alone); H2 ``rescue_perm`` (trace and hash) for B = 1, 7 and
+   4096, random and special states, and the Rescue known-answer vectors.
+   The special values are 0, 1, p - 1, p - 2 (its low words are all
+   ones, which stresses the carries) and R mod p.  H3 ``ntt`` for n = 1,
+   2, 1024, 4096 and 8192, batch 1, 2 and 3, forward and inverse, with
+   and without scales;
    then each kernel's time per launch (CUDA events) and device time
    (profiler) beside the plain version's time on the card and the bound,
    and the same for the ladder and ``mont_mul`` at each ladder shape;
@@ -61,10 +64,12 @@ DOC = b"chip smoke: FastRPSSS on the card"
 
 # what each kernel replaces in the JAX package, and 32-bit integer
 # operations per element (H0: 20 32x32->64 products, two words each, and
-# one 32-bit product, with p's sparse words; the ladder does one such
-# Montgomery product per square and per multiply; H1: a 4-word add or
-# subtract and the conditional correction)
+# one 32-bit product, with p's sparse words; a squaring: 14 such products
+# and the narrow one; the ladder does one squaring per bit and one product
+# per multiply; H1: a 4-word add or subtract and the conditional
+# correction)
 MUL_OPS = 41
+SQR_OPS = 29
 ADD_OPS = 16
 KERNEL_INFO = {
     "mont_mul": ("stark_anatomy_tpu/field/pallas_kernels.py:114", MUL_OPS),
@@ -174,16 +179,19 @@ def bound_ms(numel: int, nbytes: int, ops_per_element: int):
 
 
 def ladder_ops(exponent: int) -> int:
-    """32-bit operations per element of x^exponent: one product for each
-    square and each multiply of the ladder."""
-    return MUL_OPS * (exponent.bit_length() - 1 + bin(exponent).count("1") - 1)
+    """32-bit operations per element of x^exponent: a squaring for each bit
+    after the top one and a product for each multiply of the ladder."""
+    return SQR_OPS * (exponent.bit_length() - 1) + MUL_OPS * (bin(exponent).count("1") - 1)
 
 
-def rescue_ops(batch: int) -> int:
+def rescue_ops(batch: int, chain) -> int:
     """32-bit operations of the permutation on ``batch`` states: per round
-    and element x^3 (2 products) and x^ALPHA_INV, two 2x2 MDS (4 products
-    and 2 adds each) and 2 constant adds per element."""
-    per_round = 2 * (2 * MUL_OPS) + 2 * ladder_ops(ALPHA_INV) + 2 * (4 * MUL_OPS + 2 * ADD_OPS) + 4 * ADD_OPS
+    and element x^3 (a squaring and a product) and x^ALPHA_INV by the
+    steps of ``chain``, two 2x2 MDS (4 products and 2 adds each) and 2
+    constant adds per element."""
+    chain_ops = sum(SQR_OPS if a == b else MUL_OPS for _, a, b in chain)
+    per_round = (2 * (SQR_OPS + MUL_OPS + chain_ops) + 2 * (4 * MUL_OPS + 2 * ADD_OPS)
+                 + 4 * ADD_OPS)
     return batch * 27 * per_round
 
 
@@ -248,8 +256,8 @@ def host_profile_sign(sign) -> None:
 
 def field_inputs(shape, seed: int, special=None):
     """Two seeded limb tensors of ``shape`` (CPU) holding values in [0, p);
-    their first elements are ``special`` (by default 0, 1, p-1 and the
-    Montgomery one, R mod p), in rotated order."""
+    their first elements are ``special`` (by default 0, 1, p - 1, p - 2 and
+    the Montgomery one, R mod p), in rotated order."""
     import math
 
     import torch
@@ -259,7 +267,7 @@ def field_inputs(shape, seed: int, special=None):
 
     rng = random.Random(seed)
     count = math.prod(shape) // 8
-    special = list(special) if special is not None else [0, 1, P - 1, R % P]
+    special = list(special) if special is not None else [0, 1, P - 1, P - 2, R % P]
     lead, n = tuple(shape[:-2]), shape[-1]
     out = []
     for rot in range(2):
@@ -280,6 +288,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field.limbs import R
     from stark_anatomy_tpu_torch.field.scalar import P
     from stark_anatomy_tpu_torch.models.rescue_prime import hash_batch, permutation_tables, trace_batch
     from stark_anatomy_tpu_torch.ops.domain import DOMAINS
@@ -352,12 +361,16 @@ def main() -> int:
         worst_err[name] = max(worst_err[name], err)
 
     # H2, trace and hash, against the plain permutation (on CPU copies; on
-    # the card for the large batch, where the CPU would take minutes).  A
-    # "special" state starts with 0, 1, p - 1 and R mod p and is random
-    # after them, so only B = 1 needs a random state of its own.
+    # the card for the large batch, where the CPU would take minutes).  In
+    # a "special" batch both elements (both lanes of a state) start with
+    # the special values, in opposite orders, and are random after them,
+    # so only B = 1 needs a random state of its own.
     rescue_tabs = {d: (*permutation_tables(d), ALPHA_INV) for d in ("cpu", dev)}
+    specials = [0, 1, P - 1, P - 2, R % P]
     for i, batch in enumerate(RESCUE_BATCHES):
-        for label, special in (("random", []), ("special", None))[batch > 1:]:
+        rng = random.Random(500 + i)
+        rows = [s + [rng.randrange(P) for _ in range(batch - len(s))] for s in (specials, specials[::-1])]
+        for label, special in (("random", []), ("special", rows[0] + rows[1]))[batch > 1:]:
             state_cpu = field_inputs((2, 8, batch), 500 + i, special=special)[0]
             ref_dev = "cpu" if batch < 100 else dev
             want = K.rescue_permutation_plain(state_cpu.to(ref_dev), *rescue_tabs[ref_dev], True)
@@ -453,7 +466,8 @@ def main() -> int:
         state = field_inputs((2, 8, batch), 800 + batch)[0].to(dev)
         for collect in (True, False):
             out_states = 28 if collect else 1
-            bound = bound_ms(1, (1 + out_states) * 2 * 8 * batch * 4 + table_bytes, rescue_ops(batch))
+            bound = bound_ms(1, (1 + out_states) * 2 * 8 * batch * 4 + table_bytes,
+                             rescue_ops(batch, K.ALPHA_INV_CHAIN))
             ms = time_launches(lambda: K.rescue_permutation(state, *rescue_tabs[dev], collect), 20)
             got = profile_kernel("rescue_perm", lambda: K.rescue_permutation(state, *rescue_tabs[dev], collect), 5)
             line = (f"  rescue_perm {'trace' if collect else 'hash'} B={batch}: {ms:.6f} ms/launch, "

@@ -46,45 +46,44 @@
 //     NTTs on at most 2 x 4096), so launch overhead sets its time.
 //   * The ladder (pow_kernel) runs left-to-right square-and-multiply from
 //     the top bit down, the order of the JAX scan and of the plain
-//     version (the value is exact either way).  The accumulator and x stay
-//     in registers for the whole chain, and the thread stores once.  The
-//     exponent is the same for every thread, so the branch on each bit
-//     does not diverge.  What bounds it: at the Rescue shape (2, 8, 1) the
-//     roofline bound is under a nanosecond (128 bytes moved; 191 products
-//     of 41 32-bit multiply operations for each of 2 elements).  Its time
-//     is that of one thread's chain of dependent products, 191 for
-//     ALPHA_INV and 250 for p - 2, each issued by one warp: about 27 us
-//     and 34 us on an H100 SXM at 700 W.  Shared memory, TMA and the tensor cores
-//     have no role here: each element's 32 bytes are read once and stay in
+//     version (the value is exact either way), each squaring by the
+//     squaring product mont_sqr_words (10 word products for a*a, not 16).
+//     The accumulator and x stay in registers for the whole chain, and
+//     the thread stores once.  The exponent is the same for every thread,
+//     so the branch on each bit does not diverge.  What bounds it: at the
+//     Rescue shape (2, 8, 1) the roofline bound is under a nanosecond.
+//     Its time is that of one warp issuing the chain's instructions: about
+//     115 SASS instructions per product, at about 2 cycles each on an H100
+//     SXM (PERF.md, tools/sass_count.py), so 190 products for ALPHA_INV
+//     and 250 for p - 2 take about 25 us and 33 us at 700 W.  Independent
+//     work in the same warp would not overlap: the warp is issue-bound,
+//     not latency-bound.  Shared memory, TMA and the tensor cores have no
+//     role here: each element's 32 bytes are read once and stay in
 //     registers, no data is reused across threads, and the int8 IMMA path
 //     would need 16 byte-limbs and a carry pass for every product of a
-//     serial chain.  Cutting the chain's latency would take several lanes
-//     per element (a warp-cooperative product); that is left to later
-//     work.  Blocks are small (kPowThreads) so that a launch of a few
-//     thousand elements spreads over many SMs.
+//     serial chain.  Blocks are small (kPowThreads) so that a launch of a
+//     few thousand elements spreads over many SMs.
 //   * H1 is bound by memory: 96 bytes per element (two 32-byte inputs,
 //     one 32-byte output) for about a dozen integer operations.
-//   * H2 (rescue_kernel) gives one thread a whole state: its two elements
-//     stay in registers for all 27 rounds (x^3, the 2x2 MDS, the forward
-//     constants, x^ALPHA_INV by the shared ladder mont_pow_words, the MDS,
-//     the backward constants), and the thread stores each round's state
-//     (the trace) or only the last (the hash).  The ladder runs both
-//     elements' chains in one loop.  What bounds it: 27 * (2 * 193 + 8)
-//     = 10,638 products of 41 operations per state, nanoseconds of the
-//     card's rate, and 64 bytes in and 28 * 64 bytes out.  Its time is
-//     that of one warp running 27 rounds of two 191-product ladders.
-//     Measured, a round takes about twice one ladder's time, so the two
-//     chains do not overlap.  Why is not measured: either one warp's
-//     product already issues about one instruction a cycle, or the
-//     compiler serialises the two chains and each product waits out its
-//     latency.  A SASS count per product or an issue-slot reading would
-//     tell them apart.  As for the ladder,
-//     shared memory, TMA and the tensor cores have no role: the main
-//     path runs one state (one warp of which one lane works), each step
-//     depends on the last, and the round constants and MDS matrix are
-//     512 bytes read by every thread alike (broadcast loads that the L1
-//     cache serves).  Blocks are small (kRescueThreads) so that a large
-//     batch spreads over the SMs.
+//   * H2 (rescue_kernel) gives each state two adjacent lanes of a warp:
+//     lane i holds element i in four words for all 27 rounds, runs its
+//     own x^3, x^ALPHA_INV and round constants, and gets the other
+//     element for the 2x2 MDS by one __shfl_xor_sync of its four words.
+//     x^ALPHA_INV is a fixed chain (pow_alpha_inv) of 147 products, 127 of
+//     them squarings by mont_sqr_words, in place of the 191-product
+//     ladder.  Each lane stores its element of each round's state (the
+//     trace) or of the last (the hash).  What bounds it: 27 * 153 = 4,131
+//     products per lane, nanoseconds of the card's rate, and 64 bytes in
+//     and 28 * 64 out per state.  Its time is that of one warp issuing
+//     the chain's instructions, about 2 cycles each (PERF.md): one thread
+//     per state ran the two elements' chains interleaved, and the round
+//     still took twice one chain, because the warp issued both; in two
+//     lanes one warp instruction serves both elements.  As for the
+//     ladder, shared memory, TMA and the tensor cores have no role: each
+//     step depends on the last, and the round constants and MDS matrix
+//     are 512 bytes read by every lane alike (loads that the L1 cache
+//     serves).  Blocks are small (kRescueThreads) so that a large batch
+//     spreads over the SMs: B = 4096 gives 128 blocks of two warps.
 //   * H3 (ntt_kernel) gives each transform one block of kNttThreads,
 //     with the whole transform in dynamic shared memory as four 32-bit
 //     words per element, and the n/2 twiddles beside it (24 n bytes:
@@ -170,45 +169,18 @@ __device__ __forceinline__ uint64_t wide(uint32_t x, uint32_t y) {
   return static_cast<uint64_t>(x) * y;
 }
 
-// r = a*b*2^-128 mod p for a, b < p.  r may alias a or b: both are read in
-// full before r is written.
+// r = T * 2^-128 mod p for T = t[0..7] < p * 2^128 (a product of two
+// values below p).  r may alias nothing in t.
 //
 // Montgomery with one reduction step instead of four CIOS rounds, which
 // p's shape allows.  p = 1 + kP3 * 2^96, so p^-1 = 1 - kP3 * 2^96 and
-// -p^-1 = kP3 * 2^96 - 1 (mod 2^128), and for T = a*b = T_hi 2^128 + T_lo:
+// -p^-1 = kP3 * 2^96 - 1 (mod 2^128), and for T = T_hi 2^128 + T_lo:
 //   m = T * (-p^-1) mod 2^128 = c3 * 2^96 - T_lo,  c3 = t0 * kP3 mod 2^32,
 //   T_lo + m = c3 * 2^96 + k * 2^128  (k is the borrow of that subtract),
 //   (T + m p) / 2^128 = T_hi + k + (m * kP3 + c3) / 2^32,
-// which is < 2p, so one conditional subtract of p finishes.  The four rows
-// of a*b are independent chains, and the reduction is two short ones: the
-// dependent path is shorter than that of four interleaved CIOS rounds,
-// which matters because the ladder is a chain of these products.
-__device__ __forceinline__ void mont_mul_words(const uint32_t a[4],
-                                               const uint32_t b[4],
-                                               uint32_t r[4]) {
-  // T = a*b: four independent rows a * b_i, then summed by column.
-  uint32_t row[4][5];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    uint64_t s = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s = wide(a[j], b[i]) + (s >> 32);
-      row[i][j] = static_cast<uint32_t>(s);
-    }
-    row[i][4] = static_cast<uint32_t>(s >> 32);
-  }
-  uint32_t t[8];
-  uint64_t c = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (k - i >= 0 && k - i <= 4) c += row[i][k - i];
-    }
-    t[k] = static_cast<uint32_t>(c);
-    c >>= 32;
-  }
+// which is < 2p, so one conditional subtract of p finishes: four wide
+// products and one narrow one, in two short chains.
+__device__ __forceinline__ void mont_reduce(const uint32_t t[8], uint32_t r[4]) {
   // m = c3 * 2^96 - T_lo mod 2^128, and its borrow k.
   const uint32_t c3 = t[0] * kP3;
   uint32_t m[4];
@@ -236,6 +208,94 @@ __device__ __forceinline__ void mont_mul_words(const uint32_t a[4],
     r[j] = static_cast<uint32_t>(s);
   }
   cond_sub_p(r, static_cast<uint32_t>(s >> 32));
+}
+
+// r = a*b*2^-128 mod p for a, b < p: 16 word products for T = a*b, in
+// four independent rows, then the reduction.  r may alias a or b: both
+// are read in full before r is written.
+__device__ __forceinline__ void mont_mul_words(const uint32_t a[4],
+                                               const uint32_t b[4],
+                                               uint32_t r[4]) {
+  // T = a*b: four independent rows a * b_i, then summed by column.
+  uint32_t row[4][5];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint64_t s = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s = wide(a[j], b[i]) + (s >> 32);
+      row[i][j] = static_cast<uint32_t>(s);
+    }
+    row[i][4] = static_cast<uint32_t>(s >> 32);
+  }
+  uint32_t t[8];
+  uint64_t c = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (k - i >= 0 && k - i <= 4) c += row[i][k - i];
+    }
+    t[k] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+  mont_reduce(t, r);
+}
+
+// r = a*a*2^-128 mod p for a < p, with 10 word products for T = a*a in
+// place of 16: T = 2C + D, C = sum_{i<j} a_i a_j 2^(32(i+j)) (6 cross
+// products) and D = sum_i a_i^2 2^(64i) (4 squares).  2 a_i a_j does not
+// fit 64 bits, so C is summed by column and carried into words c[1..7]
+// first, then doubled by a one-bit shift across the words.  This is exact:
+// every cross term is below 2^(32(i+j)+64) with i+j <= 5, so C < 2^225 and
+// 2C < 2^226 fits the eight words with nothing shifted out; T = a^2 <
+// 2^256, so adding D carries nothing out of word 7.  r may alias a.
+__device__ __forceinline__ void mont_sqr_words(const uint32_t a[4], uint32_t r[4]) {
+  // the cross rows a_i * (a_{i+1} .. a_3), row i starting at word 2i + 1
+  uint32_t row0[4], row1[3], row2[2];
+  uint64_t s = 0;
+#pragma unroll
+  for (int j = 1; j < 4; ++j) {
+    s = wide(a[0], a[j]) + (s >> 32);
+    row0[j - 1] = static_cast<uint32_t>(s);
+  }
+  row0[3] = static_cast<uint32_t>(s >> 32);
+  s = wide(a[1], a[2]);
+  row1[0] = static_cast<uint32_t>(s);
+  s = wide(a[1], a[3]) + (s >> 32);
+  row1[1] = static_cast<uint32_t>(s);
+  row1[2] = static_cast<uint32_t>(s >> 32);
+  s = wide(a[2], a[3]);
+  row2[0] = static_cast<uint32_t>(s);
+  row2[1] = static_cast<uint32_t>(s >> 32);
+  // C by column: words 1..6 and the carry into word 7
+  uint32_t c[8];
+  c[0] = 0;
+  c[1] = row0[0];
+  c[2] = row0[1];
+  uint64_t col = static_cast<uint64_t>(row0[2]) + row1[0];
+  c[3] = static_cast<uint32_t>(col);
+  col = static_cast<uint64_t>(row0[3]) + row1[1] + (col >> 32);
+  c[4] = static_cast<uint32_t>(col);
+  col = static_cast<uint64_t>(row1[2]) + row2[0] + (col >> 32);
+  c[5] = static_cast<uint32_t>(col);
+  col = static_cast<uint64_t>(row2[1]) + (col >> 32);
+  c[6] = static_cast<uint32_t>(col);
+  c[7] = static_cast<uint32_t>(col >> 32);
+  // T = 2C + D
+  uint32_t t[8];
+  uint64_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint64_t sq = wide(a[i], a[i]);
+    const uint32_t lo = (c[2 * i] << 1) | (i == 0 ? 0u : c[2 * i - 1] >> 31);
+    const uint32_t hi = (c[2 * i + 1] << 1) | (c[2 * i] >> 31);
+    acc = static_cast<uint64_t>(lo) + static_cast<uint32_t>(sq) + (acc >> 32);
+    t[2 * i] = static_cast<uint32_t>(acc);
+    acc = static_cast<uint64_t>(hi) + static_cast<uint32_t>(sq >> 32) + (acc >> 32);
+    t[2 * i + 1] = static_cast<uint32_t>(acc);
+  }
+  mont_reduce(t, r);
 }
 
 struct MontMul {
@@ -301,28 +361,19 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// acc[w] = x[w]^e for W independent elements, e = e_hi * 2^64 + e_lo of
-// nbits bits (0 <= nbits <= 128; nbits = 0 gives the Montgomery one).
-// Left-to-right square and multiply from the top bit down.  The W chains
-// share each step, so their products interleave.  acc must not alias x.
-template <int W>
-__device__ __forceinline__ void mont_pow_words(const uint32_t x[W][4],
-                                               uint64_t e_lo, uint64_t e_hi,
-                                               int nbits, uint32_t acc[W][4]) {
+// acc = x^e, e = e_hi * 2^64 + e_lo of nbits bits (0 <= nbits <= 128;
+// nbits = 0 gives the Montgomery one).  Left-to-right square and multiply
+// from the top bit down.  acc must not alias x.
+__device__ __forceinline__ void mont_pow_words(const uint32_t x[4], uint64_t e_lo,
+                                               uint64_t e_hi, int nbits,
+                                               uint32_t acc[4]) {
 #pragma unroll
-  for (int w = 0; w < W; ++w) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[w][k] = nbits == 0 ? one_mont_word(k) : x[w][k];
-  }
+  for (int k = 0; k < 4; ++k) acc[k] = nbits == 0 ? one_mont_word(k) : x[k];
 #pragma unroll 1
   for (int i = nbits - 2; i >= 0; --i) {
-#pragma unroll
-    for (int w = 0; w < W; ++w) mont_mul_words(acc[w], acc[w], acc[w]);
+    mont_sqr_words(acc, acc);
     const uint64_t word = i >= 64 ? e_hi >> (i - 64) : e_lo >> i;
-    if (word & 1u) {
-#pragma unroll
-      for (int w = 0; w < W; ++w) mont_mul_words(acc[w], x[w], acc[w]);
-    }
+    if (word & 1u) mont_mul_words(acc, x, acc);
   }
 }
 
@@ -337,101 +388,117 @@ __global__ void __launch_bounds__(kPowThreads)
        idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const int64_t bi = idx / n;
     const int64_t j = idx - bi * n;
-    uint32_t xw[1][4], acc[1][4];
-    load4(x, bi, j, xw[0]);
-    mont_pow_words<1>(xw, e_lo, e_hi, nbits, acc);
-    store4(out, bi, j, n, acc[0]);
+    uint32_t xw[4], acc[4];
+    load4(x, bi, j, xw);
+    mont_pow_words(xw, e_lo, e_hi, nbits, acc);
+    store4(out, bi, j, n, acc);
   }
 }
 
 constexpr int kRescueM = 2;
 constexpr int kRescueRounds = 27;
-constexpr int kRescueThreads = 64;
+constexpr int kRescueThreads = 64;      // two warps: 32 states a block
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 
-// s <- MDS * s for the 2x2 matrix mds[i][j] (Montgomery words).
-__device__ __forceinline__ void rescue_mds(const uint32_t mds[kRescueM][kRescueM][4],
-                                           uint32_t s[kRescueM][4]) {
-  uint32_t r[kRescueM][4], t[4];
+// Lane i of a state's pair holds element i; o is the other element,
+// fetched from the neighbouring lane.  s <- row i of MDS * (s0, s1).
+__device__ __forceinline__ void rescue_mds_lane(const uint32_t m_own[4],
+                                                const uint32_t m_other[4],
+                                                uint32_t s[4]) {
+  uint32_t o[4], t[4];
 #pragma unroll
-  for (int i = 0; i < kRescueM; ++i) {
-    mont_mul_words(s[0], mds[i][0], r[i]);
-#pragma unroll
-    for (int j = 1; j < kRescueM; ++j) {
-      mont_mul_words(s[j], mds[i][j], t);
-      AddMod()(r[i], t, r[i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRescueM; ++i) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) s[i][k] = r[i][k];
-  }
+  for (int k = 0; k < 4; ++k) o[k] = __shfl_xor_sync(kFullWarp, s[k], 1);
+  mont_mul_words(s, m_own, t);
+  mont_mul_words(o, m_other, s);
+  AddMod()(t, s, s);
 }
 
-// s[i] <- s[i] + rc[(round * 2 + half) * m + i], rc as (N, 2, m, 8) limbs.
-__device__ __forceinline__ void rescue_add_constants(const int32_t* rc, int round,
-                                                     int half,
-                                                     uint32_t s[kRescueM][4]) {
+// s <- s + rc[(round * 2 + half) * m + i], rc as (N, 2, m, 8) limbs.
+__device__ __forceinline__ void rescue_add_constant(const int32_t* rc, int round,
+                                                    int half, int i, uint32_t s[4]) {
   const Operand table{rc, 8, 1, 0};
+  uint32_t c[4];
+  load4(table, (round * 2 + half) * kRescueM + i, 0, c);
+  AddMod()(s, c, s);
+}
+
+// r = x^ALPHA_INV, ALPHA_INV = (2p - 1) / 3 = 0x87AA...AB, the Rescue
+// S-box x^(1/3), by the fixed chain ALPHA_INV_CHAIN of field/kernels.py,
+// step for step: 127 squarings and 20 multiplies (147 products, against
+// the ladder's 191).  r must not alias x.
+__device__ __forceinline__ void pow_alpha_inv(const uint32_t x[4], uint32_t r[4]) {
+  uint32_t x5[4], x10[4], x40[4], x85[4], xaa[4], xab[4], t[4];
+  mont_sqr_words(x, t);          // x^2
+  mont_sqr_words(t, t);          // x^4
+  mont_mul_words(t, x, x5);      // x^5
+  mont_sqr_words(x5, x10);       // x^10
+  mont_sqr_words(x10, t);        // x^20
+  mont_sqr_words(t, x40);        // x^40
+  mont_sqr_words(x40, t);        // x^80
+  mont_mul_words(t, x5, x85);    // x^0x55
+  mont_sqr_words(x85, xaa);      // x^0xAA
+  mont_mul_words(xaa, x, xab);   // x^0xAB
+  mont_mul_words(x85, x40, t);   // x^125
+  mont_mul_words(t, x10, r);     // x^0x87, the top byte
+  // the 15 lower bytes, 0xAA fourteen times then 0xAB: 8 squarings and a
+  // multiply each (the factor is selected word by word, so that both stay
+  // in registers).  The squarings stay a loop: unrolled, the kernel's code
+  // grew by about 14 KB and H2 ran 5-10% slower (PERF.md).
+#pragma unroll 1
+  for (int byte = 0; byte < 15; ++byte) {
+#pragma unroll 1
+    for (int k = 0; k < 8; ++k) mont_sqr_words(r, r);
+    uint32_t f[4];
 #pragma unroll
-  for (int i = 0; i < kRescueM; ++i) {
-    uint32_t c[4];
-    load4(table, (round * 2 + half) * kRescueM + i, 0, c);
-    AddMod()(s[i], c, s[i]);
+    for (int k = 0; k < 4; ++k) f[k] = byte < 14 ? xaa[k] : xab[k];
+    mont_mul_words(r, f, r);
   }
 }
 
 // state: contiguous (m, 8, batch).  rc: (N, 2, m, 8) limbs, mds: (m, m, 8)
 // limbs, both Montgomery form.  out: (N + 1, m, 8, batch), every state from
 // the input on, if collect_trace; else the final state (m, 8, batch).
-// x^(1/3) is x^e with e = e_hi * 2^64 + e_lo of nbits bits (ALPHA_INV).
+//
+// Two adjacent lanes of a warp run one state, lane i its element i, so one
+// warp instruction advances both elements' chains.  Every lane of a warp
+// runs the same loop trips (the loop advances whole warps: 16 states), so
+// the shuffles see a full warp; a lane past the batch runs on the last
+// state and stores nothing.
 __global__ void __launch_bounds__(kRescueThreads)
     rescue_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ state,
                   int64_t batch, const int32_t* __restrict__ rc,
-                  const int32_t* __restrict__ mds_limbs, uint64_t e_lo,
-                  uint64_t e_hi, int nbits, int collect_trace) {
+                  const int32_t* __restrict__ mds_limbs, int collect_trace) {
   const Operand in{state, 8 * batch, batch, 1};
   const Operand mds_table{mds_limbs, 8, 1, 0};
-  uint32_t mds[kRescueM][kRescueM][4];
-#pragma unroll
-  for (int i = 0; i < kRescueM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kRescueM; ++j) load4(mds_table, i * kRescueM + j, 0, mds[i][j]);
-  }
-  for (int64_t b = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       b < batch; b += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    uint32_t s[kRescueM][4], root[kRescueM][4];
-#pragma unroll
-    for (int i = 0; i < kRescueM; ++i) {
-      load4(in, i, b, s[i]);
-      if (collect_trace) store4(out, i, b, batch, s[i]);
-    }
+  const int i = threadIdx.x & 1;
+  uint32_t m_own[4], m_other[4];
+  load4(mds_table, i * kRescueM + i, 0, m_own);
+  load4(mds_table, i * kRescueM + (1 - i), 0, m_other);
+  const int64_t lane = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int64_t step = (static_cast<int64_t>(gridDim.x) * blockDim.x) / kRescueM;
+  const int pair = (threadIdx.x & 31) / kRescueM;     // the state's place in its warp
+  for (int64_t first = (lane - (threadIdx.x & 31)) / kRescueM; first < batch; first += step) {
+    const int64_t b = first + pair;
+    const bool live = b < batch;
+    uint32_t s[4], root[4];
+    load4(in, i, live ? b : batch - 1, s);
+    if (collect_trace && live) store4(out, i, b, batch, s);
 #pragma unroll 1
     for (int r = 0; r < kRescueRounds; ++r) {
       // forward half-round: x^3, MDS, constants
-#pragma unroll
-      for (int i = 0; i < kRescueM; ++i) {
-        uint32_t sq[4];
-        mont_mul_words(s[i], s[i], sq);
-        mont_mul_words(sq, s[i], s[i]);
-      }
-      rescue_mds(mds, s);
-      rescue_add_constants(rc, r, 0, s);
+      mont_sqr_words(s, root);
+      mont_mul_words(root, s, s);
+      rescue_mds_lane(m_own, m_other, s);
+      rescue_add_constant(rc, r, 0, i, s);
       // backward half-round: x^(1/3), MDS, constants
-      mont_pow_words<kRescueM>(s, e_lo, e_hi, nbits, root);
-      rescue_mds(mds, root);
-      rescue_add_constants(rc, r, 1, root);
+      pow_alpha_inv(s, root);
+      rescue_mds_lane(m_own, m_other, root);
+      rescue_add_constant(rc, r, 1, i, root);
 #pragma unroll
-      for (int i = 0; i < kRescueM; ++i) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) s[i][k] = root[i][k];
-        if (collect_trace) store4(out, (r + 1) * kRescueM + i, b, batch, s[i]);
-      }
+      for (int k = 0; k < 4; ++k) s[k] = root[k];
+      if (collect_trace && live) store4(out, (r + 1) * kRescueM + i, b, batch, s);
     }
-    if (!collect_trace) {
-#pragma unroll
-      for (int i = 0; i < kRescueM; ++i) store4(out, i, b, batch, s[i]);
-    }
+    if (!collect_trace && live) store4(out, i, b, batch, s);
   }
 }
 
@@ -576,21 +643,19 @@ int stark_mont_pow(void* out, const void* x, int64_t batch, int64_t n,
 
 // state: contiguous (2, 8, batch); rc: contiguous (27, 2, 2, 8) limbs and
 // mds: contiguous (2, 2, 8) limbs, Montgomery form.  out: (28, 2, 8, batch)
-// if collect_trace, else (2, 8, batch).  x^(1/3) = x^e, e = e_hi * 2^64 +
-// e_lo of nbits bits.
+// if collect_trace, else (2, 8, batch).  The backward S-box is x^ALPHA_INV
+// (pow_alpha_inv); the wrapper refuses any other exponent.
 int stark_rescue_perm(void* out, const void* state, int64_t batch,
-                      const void* rc, const void* mds, uint64_t e_lo,
-                      uint64_t e_hi, int nbits, int collect_trace, void* stream,
-                      int device) {
+                      const void* rc, const void* mds, int collect_trace,
+                      void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (nbits < 0 || nbits > 128) return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0) return 0;
-  rescue_kernel<<<grid_for(batch, kRescueThreads), kRescueThreads, 0,
+  rescue_kernel<<<grid_for(batch * kRescueM, kRescueThreads), kRescueThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(out), static_cast<const int32_t*>(state), batch,
-      static_cast<const int32_t*>(rc), static_cast<const int32_t*>(mds), e_lo,
-      e_hi, nbits, collect_trace);
+      static_cast<const int32_t*>(rc), static_cast<const int32_t*>(mds),
+      collect_trace);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,6 +49,24 @@ BINARY = ("mont_mul", "add_mod", "sub_mod")
 KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "rescue_perm", "ntt")
 RESCUE_M = 2            # Rescue-Prime state width
 RESCUE_ROUNDS = 27
+# The Rescue S-box x^(1/3) is x^ALPHA_INV, ALPHA_INV = (2p - 1)/3 =
+# 0x87AA...AB (128 bits, 65 of them ones).  H2 and its plain version
+# compute it by this fixed chain of Montgomery products in place of the
+# ladder: a step (out, a, b) sets out = a * b, a squaring where a == b, and
+# the chain's result is "acc".  127 squarings and 20 multiplies, 147
+# products against the ladder's 191 (127 + 64).  csrc/field.cu:pow_alpha_inv
+# runs the same steps.
+ALPHA_INV_CHAIN = (
+    [("x2", "x", "x"), ("x4", "x2", "x2"), ("x5", "x4", "x"), ("x10", "x5", "x5"),
+     ("x20", "x10", "x10"), ("x40", "x20", "x20"), ("x80", "x40", "x40"),
+     ("x85", "x80", "x5"),                    # x^0x55
+     ("x170", "x85", "x85"),                  # x^0xAA
+     ("x171", "x170", "x"),                   # x^0xAB
+     ("x125", "x85", "x40"), ("acc", "x125", "x10")]   # x^0x87, the top byte
+    # each lower byte b: acc <- acc^256 * x^b
+    + [step for byte in (0xAA,) * 14 + (0xAB,)
+       for step in [("acc", "acc", "acc")] * 8 + [("acc", "acc", f"x{byte}")]]
+)
 NTT_MAX = 8192          # H3 holds a whole transform in one block's shared memory
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -106,7 +124,7 @@ _ARGTYPES = {
     "mont_pow": [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_uint64] * 2
     + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
     "rescue_perm": [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
-    + [ctypes.c_uint64] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int],
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
     "ntt": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 2
     + [ctypes.c_int64] * 3 + [ctypes.c_void_p] + [ctypes.c_int64] * 3
     + [ctypes.c_void_p] * 2 + [ctypes.c_int],
@@ -266,6 +284,23 @@ def mont_pow(x: torch.Tensor, exponent: int) -> torch.Tensor:
     return out
 
 
+def run_chain(x, mul):
+    """The result of ALPHA_INV_CHAIN from x, with ``mul`` as the product."""
+    values = {"x": x}
+    for out, a, b in ALPHA_INV_CHAIN:
+        values[out] = mul(values[a], values[b])
+    return values["acc"]
+
+
+ALPHA_INV = run_chain(1, lambda a, b: a + b)    # the exponent the chain computes
+
+
+def _check_alpha_inv(alpha_inv: int) -> None:
+    if alpha_inv != ALPHA_INV:
+        raise ValueError(f"rescue_perm: x^(1/3) runs a fixed chain for ALPHA_INV = {ALPHA_INV:#x}; "
+                         f"got the exponent {alpha_inv:#x}")
+
+
 def _check_table(name: str, table: torch.Tensor, shape: Tuple[int, ...]) -> None:
     if table.dtype != torch.int32 or tuple(table.shape) != shape or not table.is_contiguous():
         raise ValueError(f"{name} must be a contiguous int32 {shape} table; "
@@ -278,8 +313,11 @@ def rescue_permutation(state: torch.Tensor, rc: torch.Tensor, mds: torch.Tensor,
     states, m = 2.  ``rc`` holds the round constants (N, 2, m, 8, 1) (round
     r adds [r, 0] after its forward half, [r, 1] after its backward half),
     ``mds`` the MDS matrix (m, m, 8, 1), both in Montgomery form, and the
-    backward S-box is x^alpha_inv.  Returns every state from the input on,
-    (N+1, m, 8, B), if ``collect_trace``; else the final states (m, 8, B)."""
+    backward S-box is x^alpha_inv, which must be ALPHA_INV (ValueError
+    otherwise: the kernel runs a fixed chain for it).  Returns every state
+    from the input on, (N+1, m, 8, B), if ``collect_trace``; else the final
+    states (m, 8, B)."""
+    _check_alpha_inv(alpha_inv)
     if state.device.type == "cpu":
         return rescue_permutation_plain(state, rc, mds, alpha_inv, collect_trace)
     _check_cuda("rescue_perm", state, rc, mds)
@@ -295,7 +333,7 @@ def rescue_permutation(state: torch.Tensor, rc: torch.Tensor, mds: torch.Tensor,
         return out
     err = _entry("rescue_perm")(
         out.data_ptr(), state.data_ptr(), state.shape[-1], rc.data_ptr(), mds.data_ptr(),
-        *exponent_words(alpha_inv), int(collect_trace), *_stream(state),
+        int(collect_trace), *_stream(state),
     )
     _finish("rescue_perm", err)
     return out
@@ -450,14 +488,15 @@ def rescue_permutation_plain(state: torch.Tensor, rc: torch.Tensor, mds: torch.T
                              alpha_inv: int, collect_trace: bool) -> torch.Tensor:
     """Plain version of H2: the rounds of the JAX scan
     (stark_anatomy_tpu/models/rescue_prime.py:_permutation_scan) over the
-    plain field functions."""
+    plain field functions, x^(1/3) by ALPHA_INV_CHAIN."""
+    _check_alpha_inv(alpha_inv)
     states = [state]
     for r in range(rc.shape[0]):
         # forward half-round: x^3, MDS, constants
         state = mont_mul_plain(mont_mul_plain(state, state), state)
         state = add_mod_plain(_mds_plain(state, mds), rc[r, 0])
-        # backward half-round: x^(1/3) = x^alpha_inv, MDS, constants
-        state = mont_pow_plain(state, alpha_inv)
+        # backward half-round: x^(1/3) = x^ALPHA_INV, MDS, constants
+        state = run_chain(state, mont_mul_plain)
         state = add_mod_plain(_mds_plain(state, mds), rc[r, 1])
         states.append(state)
     return torch.stack(states) if collect_trace else state

@@ -14,7 +14,11 @@ builds its kernels, and prints one JSON line:
 * ``pow_device_us``: device microseconds per ``F.mont_pow(x, ALPHA_INV)``
   at (2, 8, 1), all its kernels summed (torch.profiler; null if the
   profiler saw no device time);
-* ``trace_s``: ``trace_batch`` on one key (B = 1), median of 5 warm runs;
+* ``trace_s``: ``trace_batch`` on one key (B = 1), median of 5 warm runs,
+  and ``trace_device_us``: its device microseconds (the Rescue
+  permutation kernel and what else it launches);
+* ``hash4096_device_us``: device microseconds of ``hash_batch`` on 4096
+  inputs;
 * ``lde_ms``: ``coset_evaluate`` of (2, 8, 4096) coefficients on the FRI
   domain (the prover's LDE), ms per call as for ``ops_ms``, and
   ``lde_device_us``: its device microseconds, all its kernels summed;
@@ -174,7 +178,7 @@ def main() -> int:
     from stark_anatomy_tpu_torch.field import kernels as K
     from stark_anatomy_tpu_torch.field import ops as F
     from stark_anatomy_tpu_torch.field.scalar import Field
-    from stark_anatomy_tpu_torch.models.rescue_prime import trace_batch
+    from stark_anatomy_tpu_torch.models.rescue_prime import hash_batch, trace_batch
     from stark_anatomy_tpu_torch.models.rpsss import FastRPSSS
     from stark_anatomy_tpu_torch.ops import ntt as NTT
     from stark_anatomy_tpu_torch.utils.convert import device_from_ints
@@ -205,6 +209,9 @@ def main() -> int:
     sk_dev = device_from_ints([sk.value], dev)
     trace_batch(sk_dev)
     trace_s = median_s(lambda: trace_batch(sk_dev))
+    trace_device_us = device_us_per_call(lambda: trace_batch(sk_dev), 10)
+    inputs = device_from_ints([(7919 * i) ** 3 % Field.main().p for i in range(4096)], dev)
+    hash4096_device_us = device_us_per_call(lambda: hash_batch(inputs), 5)
     doc = b"port compare"
     sig = scheme.sign(sk, doc)
     assert scheme.verify(pk, doc, sig)
@@ -224,7 +231,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(json.dumps({
         "root": root, "card": smi, "ops_ms": ops_ms, "pow_device_us": pow_device_us,
-        "trace_s": trace_s, "lde_ms": lde_ms, "lde_device_us": lde_device_us,
+        "trace_s": trace_s, "trace_device_us": trace_device_us,
+        "hash4096_device_us": hash4096_device_us, "lde_ms": lde_ms, "lde_device_us": lde_device_us,
         "sign_s": sign_s, "verify_s": verify_s,
         "sign_kernel_launches": sign_kernel_launches, "launches_by_caller": by_caller,
         "sign_device_launches": sign_device_launches, "sign_busy_share": sign_busy_share,
