@@ -6,8 +6,10 @@
 Run from the repository root on a machine with a CUDA card and ``nvcc``.
 Phases (each prints its wall seconds):
 
-0. device and build: the card's name and power limit, then one ``nvcc``
-   call that builds the field kernels (stark_anatomy_tpu_torch/csrc/field.cu);
+0. device and build: the card's name and power limit, then the builds,
+   all started together: one ``nvcc`` call per CUDA source
+   (stark_anatomy_tpu_torch/csrc/field.cu and csrc/merkle.cu) and one host
+   C++ call for N1, the blake2s tree hasher (csrc/blake2s_host.cpp);
 1. kernels against their plain versions: H0 ``mont_mul`` and H1
    ``add_mod``/``sub_mod`` on the card against the plain PyTorch versions
    on CPU copies of the same inputs, exact equality, at the main path's
@@ -19,21 +21,33 @@ Phases (each prints its wall seconds):
    The special values are 0, 1, p - 1, p - 2 (its low words are all
    ones, which stresses the carries) and R mod p.  H3 ``ntt`` for n = 1,
    2, 1024, 4096 and 8192, batch 1, 2 and 3, forward and inverse, with
-   and without scales;
+   and without scales; H4 ``merkle`` (the blake2s Merkle tree) for
+   n = 4, 64 and 4096, one codeword and two, and N1 against hashlib at
+   n = 4096;
    then each kernel's time per launch (CUDA events) and device time
    (profiler) beside the plain version's time on the card and the bound,
-   and the same for the ladder and ``mont_mul`` at each ladder shape;
+   and the same for the ladder and ``mont_mul`` at each ladder shape; H4's
+   time per commit, and N1's and hashlib's per tree;
 2. main path: ``FastRPSSS()`` keygen, sign and verify on the card at the
    production parameters; verify must accept, and reject a forged
    document and another key's pk; every kernel must be launched in that
    sign; then one warm-up and three timed signs and verifies,
    and the kernel launches of one warm sign; the Rescue trace alone,
-   which must be one ``rescue_perm`` launch and no H0/H1 launch; a device
+   which must be one ``rescue_perm`` launch and no H0/H1 launch; the
+   prover's phase seconds (PhaseTimer) of the timed signs; a device
    profile of one sign (torch.profiler) and a host one (cProfile, the
    prover's main steps);
 3. card against CPU: one seeded sign on the card and one with
    ``device="cpu"`` must give identical bytes, and each must verify the
-   other's signature.
+   other's signature; then the generic prover, ``FastStark.prove`` with
+   no AIR evaluator (``compile_air``) at the production parameters, on the
+   card with the device commitment forced (STARK_TPU_DEVICE_HASH=1, so
+   every tree is built by H4) and on the CPU with host trees: identical
+   bytes, each verified, and H4 launched in that run;
+4. H4 at the large-trace size: the tree of a seeded codeword of 2^22
+   elements on the card against N1's tree of the same codeword (root,
+   the first three levels, a 64-index multiproof), with H4's time per
+   commit and N1's, the copy to the host included.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 line with one record per kernel, and the result line
@@ -55,6 +69,14 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 INT32_OPS_PER_S = 67e12     # H100 SXM 32-bit rate outside the tensor cores
+# H100 SXM instruction issue: 4 warp instructions a cycle on each of 132
+# SMs at the 1980 MHz boost clock, 32 lanes each (the float32 rate above
+# counts 2 operations per lane-instruction)
+INSTR_PER_S = 4 * 32 * 132 * 1.98e9
+# integer instructions of one blake2s compression: a G step needs 12 (two
+# three-input adds, two adds, four xors, four funnel-shift rotations), 8 G
+# a round, 10 rounds
+BLAKE2S_INSTR = 10 * 8 * 12
 SHAPES = [(1, 2, 8, 4096), (8, 1024), (8, 1000)]
 MAIN_SHAPE = (1, 2, 8, 4096)
 RESCUE_SHAPE = (2, 8, 1)                 # the Rescue state: the ladder's main shape
@@ -78,14 +100,20 @@ KERNEL_INFO = {
     "sub_mod": ("stark_anatomy_tpu/field/limb_arith.py:68", ADD_OPS),
     "rescue_perm": ("stark_anatomy_tpu/models/rescue_prime.py:175", None),
     "ntt": ("stark_anatomy_tpu/ops/ntt.py:79", None),
+    "merkle": ("stark_anatomy_tpu/commit/device_merkle.py:57", None),
 }
 # the profiler's kernel names
 PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
                 "add_mod": "AddMod", "sub_mod": "SubMod",
-                "rescue_perm": "rescue_kernel", "ntt": "ntt_kernel"}
+                "rescue_perm": "rescue_kernel", "ntt": "ntt_kernel",
+                "merkle": "merkle_kernel"}
 RESCUE_BATCHES = (1, 7, 4096)
 NTT_SIZES = (1, 2, 1024, 4096, 8192)
 NTT_MAIN = (2, 8, 4096)          # the LDE: coset_evaluate of two trace columns
+TREE_SIZES = (4, 64, 4096)
+TREE_MAIN = (8, 4096)            # one FRI-domain codeword: a commitment of the main path
+TREE_LARGE = 1 << 22             # the large-trace path's codeword (bench.py:229-236)
+PHASES = ("pipeline", "commit", "combination", "fri", "openings")
 
 
 def det_urandom(seed: bytes):
@@ -166,6 +194,35 @@ def profile_kernel(name: str, fn, iters: int):
     return sum(us for _, us in hits) / sum(c for c, _ in hits)
 
 
+def merkle_bound(n: int, batch: int):
+    """(least ms, bound) of H4's trees over ``batch`` codewords of n
+    elements: 32 bytes read per element and 32 written per flat column,
+    and BLAKE2S_INSTR instructions for each of the n - 1 nodes."""
+    bytes_ms = 64 * n * batch / HBM_BYTES_PER_S * 1e3
+    instr_ms = (n - 1) * batch * BLAKE2S_INSTR / INSTR_PER_S * 1e3
+    return max(bytes_ms, instr_ms), ("bytes" if bytes_ms >= instr_ms else "operations")
+
+
+def host_ms(fn, runs: int) -> float:
+    """Median host milliseconds of ``fn`` over ``runs`` calls after one."""
+    fn()
+    out = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t)
+    return statistics.median(out) * 1e3
+
+
+def hashlib_tree(NB, rows):
+    """The root of the paired tree over canonical rows by the plain
+    (hashlib) versions of N1's functions."""
+    level = NB.leaves_from_limb_pairs_plain(rows)
+    while level.shape[0] > 1:
+        level = NB.merkle_level_plain(level)
+    return level.tobytes()
+
+
 def fmt_us(us) -> str:
     return f"{us:.3f} us" if us is not None else "not measured"
 
@@ -229,8 +286,11 @@ def profile_sign(sign) -> None:
         print(f"  {us / 1e3:9.3f} ms  {count:6d} launches  {key[:90]}")
 
 
+# the prover's main steps, and what prove_batch does before its first
+# phase: the host Rescue hash of the boundary, the max-degree bound of the
+# symbolic AIR, the randomness draws and their upload
 HOST_SPANS = ("trace_batch", "_phase1_impl", "from_limbs_paired", "_phase2_impl",
-              "prove_host", "open_multi")
+              "prove_host", "open_multi", "hash", "max_degree", "sample", "device_from_ints")
 
 
 def host_profile_sign(sign) -> None:
@@ -287,13 +347,23 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from concurrent.futures import ThreadPoolExecutor
+
+    from stark_anatomy_tpu_torch.commit import kernels as MK
+    from stark_anatomy_tpu_torch.commit import native as NB
+    from stark_anatomy_tpu_torch.commit.device_merkle import DeviceRows, device_commit_paired
+    from stark_anatomy_tpu_torch.commit.merkle import MerkleTree, open_multi
+    from stark_anatomy_tpu_torch.config import RPSSS_CONFIG
     from stark_anatomy_tpu_torch.field import kernels as K
     from stark_anatomy_tpu_torch.field.limbs import R
-    from stark_anatomy_tpu_torch.field.scalar import P
-    from stark_anatomy_tpu_torch.models.rescue_prime import hash_batch, permutation_tables, trace_batch
+    from stark_anatomy_tpu_torch.field.scalar import Field, P
+    from stark_anatomy_tpu_torch.models.rescue_prime import (
+        RescuePrime, hash_batch, make_index_air_evaluator, permutation_tables, trace_batch,
+    )
     from stark_anatomy_tpu_torch.ops.domain import DOMAINS
     from stark_anatomy_tpu_torch.models.rpsss import FastRPSSS
-    from stark_anatomy_tpu_torch.utils.convert import device_from_ints, ints_from_device
+    from stark_anatomy_tpu_torch.protocols.fast_stark import FastStark
+    from stark_anatomy_tpu_torch.utils.convert import canonical_np, device_from_ints, ints_from_device
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -306,8 +376,11 @@ def main() -> int:
     print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     tb = time.perf_counter()
-    K.load()
-    print(f"build: {time.perf_counter() - tb:.3f} s (one nvcc call, {K.NVCC_FLAGS})")
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(K.load), pool.submit(NB.load)]:
+            job.result()
+    print(f"build: {time.perf_counter() - tb:.3f} s (one nvcc call per CUDA source, "
+          f"{K.NVCC_FLAGS}; N1 by {NB._compiler()} {NB.CXX_FLAGS}; all at once)")
     for line in K.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -398,6 +471,26 @@ def main() -> int:
                     want = K.ntt_plain(x_cpu, *tabs_cpu, *scales_cpu)
                     label = f"n={n} batch={batch} {'inverse' if inverse else 'forward'}{' scaled' if scaled else ''}"
                     compare("ntt", label, got, want)
+    # H4 against its plain version on CPU copies of the same canonical
+    # limbs (random values with the special ones first), one codeword and
+    # two in one launch set
+    for i, n in enumerate(TREE_SIZES):
+        for batch in (1, 2):
+            canon_cpu = field_inputs((batch, 8, n), 1000 + 10 * i + batch)[0]
+            got = MK.merkle_paired(canon_cpu.to(dev))
+            torch.cuda.synchronize()
+            compare("merkle", f"n={n} R={batch}", got, MK.merkle_paired_plain(canon_cpu))
+    # N1 against hashlib on the host, the main path's tree size
+    rows_4096 = canonical_np(field_inputs(TREE_MAIN, 1100)[0])
+    n1_leaves = NB.leaves_from_limb_pairs(rows_4096)
+    assert n1_leaves.tobytes() == NB.leaves_from_limb_pairs_plain(rows_4096).tobytes()
+    tree = MerkleTree.from_limbs_paired(rows_4096)
+    level = n1_leaves
+    for k, got_level in enumerate(tree.levels):
+        assert got_level.tobytes() == level.tobytes(), f"N1 level {k} differs from hashlib"
+        if level.shape[0] > 1:
+            level = NB.merkle_level_plain(level)
+    print(f"  N1 tree n={TREE_MAIN[-1]}: every level equals hashlib's")
     print(f"max mismatch count: {worst_mismatch}")
     assert worst_mismatch == 0, "a kernel disagrees with its plain version"
 
@@ -411,7 +504,7 @@ def main() -> int:
         return {
             "name": name,
             "route": "cuda",
-            "source": "stark_anatomy_tpu_torch/csrc/field.cu",
+            "source": "stark_anatomy_tpu_torch/csrc/" + ("merkle.cu" if name == "merkle" else "field.cu"),
             "replaces": KERNEL_INFO[name][0],
             "launches": None,
             "max_abs_err": worst_err[name],
@@ -501,6 +594,31 @@ def main() -> int:
               f"bound {bound[0]:.9f} ms ({bound[1]})")
         if shape == NTT_MAIN and not inverse:
             records["ntt"] = record("ntt", ms, plain_ms, bound)
+
+    # H4 per commit (all its passes) at the main path's codeword, one and
+    # two codewords; the record is one codeword.  N1 and hashlib per tree
+    # of the same size and of 2^16 elements, on the host.
+    for batch in (1, 2):
+        shape = (batch,) + TREE_MAIN if batch > 1 else TREE_MAIN
+        canon = field_inputs(shape, 1200 + batch)[0].to(dev)
+        n = shape[-1]
+        passes = len(MK.tree_passes(n))
+        bound = merkle_bound(n, batch)
+        ms = time_launches(lambda: MK.merkle_paired(canon), 200)
+        per_launch = profile_kernel("merkle", lambda: MK.merkle_paired(canon), 50)
+        dev_us = None if per_launch is None else per_launch * passes
+        plain_ms = time_launches(lambda: MK.merkle_paired_plain(canon), 1, warm=1)
+        print(f"  merkle {shape}: {ms:.6f} ms/commit ({passes} launches), device "
+              f"{fmt_us(dev_us)}/commit, plain {plain_ms:.3f} ms, bound {bound[0]:.9f} ms "
+              f"({bound[1]}; {BLAKE2S_INSTR} instructions per node at {INSTR_PER_S:.4g}/s)")
+        if batch == 1:
+            records["merkle"] = record("merkle", ms, plain_ms, bound)
+    for n in (TREE_MAIN[-1], 1 << 16):
+        rows = canonical_np(field_inputs((8, n), 1300 + n)[0])
+        n1_ms = host_ms(lambda: MerkleTree.from_limbs_paired(rows), 20)
+        plain_ms = host_ms(lambda: hashlib_tree(NB, rows), 3)
+        print(f"  host paired tree n={n}: N1 {n1_ms:.4f} ms, hashlib {plain_ms:.4f} ms "
+              f"(median, host clock)")
     phase("1 kernels", t1)
 
     # -- phase 2: the main path ---------------------------------------------
@@ -522,23 +640,33 @@ def main() -> int:
     assert accepted, f"verify rejected an honest signature: {scheme.stark.last_rejection}"
     assert not scheme.verify(pk, b"forged document", sig), "verify accepted a forged document"
     assert not scheme.verify(pk_other, DOC, sig), "verify accepted another key's pk"
+    # H4 is not on this path (the sign's codewords are under
+    # DEVICE_COMMIT_MIN); phase 3's generic prover reads its launches
     for name in K.KERNELS:
-        assert sign_launches[name] > 0, f"{name} was not launched during sign"
-        records[name]["launches"] = path_launches[name]
+        if name != "merkle":
+            assert sign_launches[name] > 0, f"{name} was not launched during sign"
+            records[name]["launches"] = path_launches[name]
     print(f"signature: {len(sig)} bytes")
 
-    sign_s, verify_s = [], []
+    sign_s, verify_s, phase_s = [], [], []
     for _ in range(4):                       # one warm-up, three timed
+        before = dict(scheme.stark.timer.totals)
         ts = time.perf_counter()
         s = scheme.sign(sk, DOC)
         torch.cuda.synchronize()
         tv = time.perf_counter()
+        phase_s.append({p: scheme.stark.timer.totals[p] - before.get(p, 0.0) for p in PHASES})
         assert scheme.verify(pk, DOC, s)
         torch.cuda.synchronize()
         sign_s.append(tv - ts)
         verify_s.append(time.perf_counter() - tv)
     print(f"sign seconds (median of 3): {statistics.median(sign_s[1:]):.4f} {sign_s[1:]} on {smi}")
     print(f"verify seconds (median of 3): {statistics.median(verify_s[1:]):.4f} {verify_s[1:]} on {smi}")
+    for k in range(1, 4):
+        parts = ", ".join(f"{p} {phase_s[k][p]:.5f}" for p in PHASES)
+        total = sum(phase_s[k].values())
+        print(f"sign phases (PhaseTimer, s): {parts}; sum {total:.5f} = "
+              f"{100 * total / sign_s[k]:.1f}% of the sign's {sign_s[k]:.5f}")
     K.reset_launch_counts()
     scheme.sign(sk, DOC)
     torch.cuda.synchronize()
@@ -571,7 +699,78 @@ def main() -> int:
     assert scheme.verify(pk, DOC, sig_cpu), "the card rejected the CPU's signature"
     assert cpu.verify(pk, DOC, sig_card), "the CPU rejected the card's signature"
     print(f"card and CPU signatures identical ({len(sig_card)} bytes), cross-verified")
+
+    # the generic prover (compile_air) at the production parameters: on the
+    # card with every commitment built by H4, on the CPU with host trees
+    field, rp = Field.main(), RescuePrime()
+    witness = field.sample(b"chip smoke generic prover")
+    trace, boundary = rp.trace(witness), rp.boundary_constraints(rp.hash(witness))
+    generic = {}
+    for label, device, hash_mode in (("card", dev, "1"), ("cpu", "cpu", "0")):
+        os.environ["STARK_TPU_DEVICE_HASH"] = hash_mode
+        try:
+            stark = FastStark.from_config(RPSSS_CONFIG, field, device=device)
+            air = rp.transition_constraints(stark.omicron)
+            K.reset_launch_counts()
+            tg = time.perf_counter()
+            tz = stark.preprocess()
+            proof = stark.prove(trace, air, boundary, tz, urandom=det_urandom(b"chip smoke generic"))
+            if label == "card":
+                torch.cuda.synchronize()
+                generic_launches = dict(K.LAUNCHES)
+                assert isinstance(tz.rows, DeviceRows), "the device commitment was not taken"
+            prove_s = time.perf_counter() - tg
+        finally:
+            del os.environ["STARK_TPU_DEVICE_HASH"]
+        assert stark.verify(proof, air, boundary, tz.root,
+                            air_index_evaluator=make_index_air_evaluator(stark)), \
+            f"the {label} rejected its own generic proof: {stark.last_rejection}"
+        generic[label] = (stark, air, tz, proof)
+        print(f"generic prover on the {label} (compile_air, STARK_TPU_DEVICE_HASH={hash_mode}): "
+              f"preprocess + prove {prove_s:.3f} s, {len(proof)} bytes; phases: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in stark.timer.totals.items()))
+    print(f"launches in the card's generic preprocess + prove: {generic_launches}")
+    assert generic_launches["merkle"] > 0, "H4 was not launched by the forced device commit"
+    records["merkle"]["launches"] = generic_launches["merkle"]
+    (cs, cair, ctz, cproof), (hs, hair, htz, hproof) = generic["card"], generic["cpu"]
+    assert ctz.root == htz.root, "the card's zerofier root differs from the CPU's"
+    assert cproof == hproof, "the card (H4 trees) and the CPU (host trees) proved different bytes"
+    assert cs.verify(hproof, cair, boundary, ctz.root), "the card rejected the CPU's generic proof"
+    assert hs.verify(cproof, hair, boundary, htz.root), "the CPU rejected the card's generic proof"
+    print("generic proofs identical on the card and the CPU, cross-verified")
     phase("3 card vs cpu", t3)
+
+    # -- phase 4: H4 at the large-trace size against N1 ----------------------
+    t4 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    cw = torch.randint(0, 1 << 16, (8, TREE_LARGE), generator=gen, device=dev, dtype=torch.int32)
+    cw[7] &= 0x3FFF                          # the top limb below p's: every value < p
+    rows, dtree = device_commit_paired(cw)
+    torch.cuda.synchronize()
+    tn = time.perf_counter()
+    host_rows = canonical_np(cw)
+    htree = MerkleTree.from_limbs_paired(host_rows)
+    n1_first_s = time.perf_counter() - tn
+    assert dtree.root == htree.root, "H4's root at 2^22 differs from N1's"
+    for k in range(3):
+        got = dtree.levels[k].cpu().numpy().view("uint32").T.astype("<u4").tobytes()
+        assert got == htree.levels[k].tobytes(), f"H4's level {k} at 2^22 differs from N1's"
+    idx = sorted(random.Random(22).sample(range(TREE_LARGE // 2), 64))
+    assert open_multi(dtree, idx) == open_multi(htree, idx), "the 64-index multiproofs differ"
+    assert rows.gather(idx[:4]) == [int.from_bytes(host_rows[i].astype("<u2").tobytes(), "little")
+                                    for i in idx[:4]]
+    print(f"H4 at n = 2^22: root, levels 0-2 and a 64-index multiproof equal N1's")
+    canon = rows.canon
+    passes = len(MK.tree_passes(TREE_LARGE))
+    ms = time_launches(lambda: MK.merkle_paired(canon), 10)
+    per_launch = profile_kernel("merkle", lambda: MK.merkle_paired(canon), 5)
+    dev_us = None if per_launch is None else per_launch * passes
+    bound = merkle_bound(TREE_LARGE, 1)
+    n1_ms = host_ms(lambda: MerkleTree.from_limbs_paired(canonical_np(cw)), 3)
+    print(f"  merkle (8, {TREE_LARGE}): {ms:.6f} ms/commit ({passes} launches), device "
+          f"{fmt_us(dev_us)}/commit, bound {bound[0]:.6f} ms ({bound[1]}); N1 with the copy to "
+          f"the host {n1_ms:.3f} ms (median of 3; first {1e3 * n1_first_s:.3f} ms) on {smi}")
+    phase("4 H4 at 2^22", t4)
 
     print(f"total: {time.perf_counter() - t0:.3f} s")
     print(smi)

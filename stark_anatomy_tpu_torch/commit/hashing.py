@@ -5,10 +5,9 @@ element hashes as its 16-byte little-endian canonical value.  DEVIATIONS
 (DEVIATIONS.md): the reference uses blake2b-512 over decimal-string
 encodings (merkle.py:6, algebra.py:56-57).  32-byte digests give 128-bit
 collision resistance matching the 128-bit protocol target and halve proof
-size.  The JAX package also hashes these leaves on the TPU
-(stark_anatomy_tpu/commit/device_merkle.py) and in C++
-(stark_anatomy_tpu/native/blake2b.cpp); this port uses the hashlib path
-only, which computes the same function.  shake_256 drives Fiat-Shamir and blake2s binds
+size.  The trees hash the same messages in C++ (commit/native.py, N1)
+and on the card (commit/device_merkle.py, H4); the functions here hash
+one message with hashlib.  shake_256 drives Fiat-Shamir and blake2s binds
 signatures to documents, as in the reference (ip.py:1, rpsss.py:3).
 """
 
@@ -34,8 +33,7 @@ def hash_pair(left: bytes, right: bytes) -> bytes:
 
 def hash_paired_leaf(v0: int, v1: int) -> bytes:
     """Digest of a PAIRED codeword leaf covering values at i and i+n/2
-    (encoding must match native stark_leaves_from_limb_pairs_s and the
-    device kernel commit/device_merkle.py)."""
+    (the message that N1's stark_leaves_from_limb_pairs_s and H4 hash)."""
     return blake2s(elt_bytes(v0) + elt_bytes(v1)).digest()
 
 

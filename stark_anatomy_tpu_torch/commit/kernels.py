@@ -1,0 +1,164 @@
+"""H4: the blake2s-256 Merkle tree kernel, with its plain version.
+
+H4 ``merkle_paired`` (csrc/merkle.cu) replaces the JAX package's jnp
+blake2s graphs K11 (stark_anatomy_tpu/commit/device_merkle.py:
+_compress_words, _paired_leaf_digests, _parent_level, _flat_tree_core).
+The source's header says what bounds it and how the design answers it.
+field/kernels.py builds and loads it with the field kernels and counts
+its launches under "merkle", one per pass.
+
+The wrapper takes canonical limbs (..., 8, n), int32 lanes holding 16-bit
+limbs, n a power of two >= 2, and returns the flat tree (..., 8, n) of
+u32 digest words held in int32 lanes, in the reference's layout: the n/2
+paired leaves (leaf i hashes LE16(v_i) || LE16(v_{i+n/2})), each parent
+level after them, the root in column n - 2 and a zero pad in column
+n - 1.  On a CPU tensor it runs the plain version below; on a CUDA tensor
+it launches H4 or raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Tuple
+
+import torch
+
+from ..field import kernels as K
+from ..field.limbs import NLIMBS
+
+TREE_LEVELS = 8          # levels one H4 pass reduces: log2 of its 256-thread block
+MAX_BATCH = 65535        # codewords per launch: the grid's y axis
+MASK32 = 0xFFFFFFFF
+
+_IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+       0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19)
+_H = (_IV[0] ^ 0x01010020,) + _IV[1:]      # digest length 32, fanout 1, depth 1
+_SIGMA = (
+    (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15),
+    (14, 10, 4, 8, 9, 15, 13, 6, 1, 12, 0, 2, 11, 7, 5, 3),
+    (11, 8, 12, 0, 5, 2, 15, 13, 10, 14, 3, 6, 7, 1, 9, 4),
+    (7, 9, 3, 1, 13, 12, 11, 14, 2, 6, 5, 10, 4, 0, 15, 8),
+    (9, 0, 5, 7, 2, 4, 10, 15, 14, 1, 11, 12, 6, 8, 3, 13),
+    (2, 12, 6, 10, 0, 11, 8, 3, 4, 13, 7, 5, 15, 14, 1, 9),
+    (12, 5, 1, 15, 14, 13, 4, 10, 0, 7, 6, 3, 9, 2, 8, 11),
+    (13, 11, 7, 14, 12, 1, 3, 9, 5, 0, 15, 4, 8, 6, 2, 10),
+    (6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5),
+    (10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0),
+)
+
+
+def tree_layout(canon: torch.Tensor) -> Tuple[int, int]:
+    """(batch, n) of a canonical (..., 8, n) input H4 takes: int32, n a
+    power of two >= 2.  Raises ValueError for any other input."""
+    if canon.dtype != torch.int32 or canon.dim() < 2 or canon.shape[-2] != NLIMBS:
+        raise ValueError(f"merkle: the kernel takes int32 (..., {NLIMBS}, n) canonical limbs; "
+                         f"got {tuple(canon.shape)} {canon.dtype}")
+    n = canon.shape[-1]
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"merkle: the codeword length must be a power of two >= 2, got {n}")
+    return math.prod(canon.shape[:-2]), n
+
+
+def tree_passes(n: int) -> List[Tuple[int, int, int]]:
+    """The H4 launches of a tree over n elements: (width, in_off, levels)
+    per pass, the first hashing the n/2 leaves.  Each pass starts from the
+    level of ``width`` nodes at flat column ``in_off`` and reduces up to
+    TREE_LEVELS levels above it."""
+    half = n // 2
+    depth = half.bit_length() - 1
+    passes, done = [], 0
+    while True:
+        levels = min(TREE_LEVELS, depth - done)
+        passes.append((half >> done, 2 * half - (2 * half >> done), levels))
+        done += levels
+        if done == depth:
+            return passes
+
+
+def merkle_paired(canon: torch.Tensor) -> torch.Tensor:
+    """H4: the flat paired-leaf blake2s tree (..., 8, n) of canonical limbs
+    (..., 8, n), one pass per TREE_LEVELS levels (a tree of up to 2^8
+    leaves takes one launch)."""
+    batch, n = tree_layout(canon)
+    if canon.device.type == "cpu":
+        return merkle_paired_plain(canon)
+    K._check_cuda("merkle", canon)
+    if not canon.is_contiguous():
+        raise ValueError("merkle: the kernel takes a contiguous input")
+    if batch > MAX_BATCH:
+        raise ValueError(f"merkle: one launch takes at most {MAX_BATCH} codewords, got {batch}")
+    flat = torch.empty_like(canon)
+    if batch == 0:
+        return flat
+    entry = K._entry("merkle")
+    for p, (width, in_off, levels) in enumerate(tree_passes(n)):
+        err = entry(flat.data_ptr(), canon.data_ptr() if p == 0 else None, batch, n,
+                    width, in_off, levels, *K._stream(canon))
+        K._finish("merkle", err)
+    return flat
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version (any device): int64 words, & 0xFFFFFFFF
+# ---------------------------------------------------------------------------
+
+def _rotr(x, n: int):
+    return ((x >> n) | (x << (32 - n))) & MASK32
+
+
+def compress_plain(m, t: int) -> List[torch.Tensor]:
+    """One final blake2s-256 compression over 16 message words (int64
+    tensors or ints that broadcast), t = message bytes <= 64: the 8 digest
+    words, vectorised over the tensors' elements."""
+    v = list(_H) + list(_IV)
+    v[12] ^= t
+    v[14] ^= MASK32
+
+    def g(a, b, c, d, x, y):
+        v[a] = (v[a] + v[b] + x) & MASK32
+        v[d] = _rotr(v[d] ^ v[a], 16)
+        v[c] = (v[c] + v[d]) & MASK32
+        v[b] = _rotr(v[b] ^ v[c], 12)
+        v[a] = (v[a] + v[b] + y) & MASK32
+        v[d] = _rotr(v[d] ^ v[a], 8)
+        v[c] = (v[c] + v[d]) & MASK32
+        v[b] = _rotr(v[b] ^ v[c], 7)
+
+    for s in _SIGMA:
+        g(0, 4, 8, 12, m[s[0]], m[s[1]])
+        g(1, 5, 9, 13, m[s[2]], m[s[3]])
+        g(2, 6, 10, 14, m[s[4]], m[s[5]])
+        g(3, 7, 11, 15, m[s[6]], m[s[7]])
+        g(0, 5, 10, 15, m[s[8]], m[s[9]])
+        g(1, 6, 11, 12, m[s[10]], m[s[11]])
+        g(2, 7, 8, 13, m[s[12]], m[s[13]])
+        g(3, 4, 9, 14, m[s[14]], m[s[15]])
+    return [_H[k] ^ v[k] ^ v[k + 8] for k in range(8)]
+
+
+def paired_leaves_plain(canon: torch.Tensor) -> torch.Tensor:
+    """(..., 8, n) canonical limbs -> (..., 8, n/2) int64 leaf digest words."""
+    limbs = canon.long() & 0xFFFF
+    words = limbs[..., 0::2, :] | (limbs[..., 1::2, :] << 16)        # (..., 4, n)
+    half = canon.shape[-1] // 2
+    lo, hi = words[..., :half], words[..., half:]
+    m = [lo[..., k, :] for k in range(4)] + [hi[..., k, :] for k in range(4)] + [0] * 8
+    return torch.stack(compress_plain(m, 32), dim=-2)
+
+
+def parent_level_plain(digests: torch.Tensor) -> torch.Tensor:
+    """(..., 8, w) int64 digest words -> (..., 8, w/2) parents."""
+    left, right = digests[..., 0::2], digests[..., 1::2]
+    m = [left[..., k, :] for k in range(8)] + [right[..., k, :] for k in range(8)]
+    return torch.stack(compress_plain(m, 64), dim=-2)
+
+
+def merkle_paired_plain(canon: torch.Tensor) -> torch.Tensor:
+    """Plain version of H4: the same flat tree, one level at a time."""
+    tree_layout(canon)
+    levels = [paired_leaves_plain(canon)]
+    while levels[-1].shape[-1] > 1:
+        levels.append(parent_level_plain(levels[-1]))
+    levels.append(torch.zeros_like(levels[-1][..., :1]))                # the pad column
+    flat = torch.cat(levels, dim=-1)
+    return torch.where(flat >= 1 << 31, flat - (1 << 32), flat).to(torch.int32)

@@ -1,11 +1,12 @@
-"""Cached binary Merkle trees over blake2s-256, hashed with hashlib.
+"""Cached binary Merkle trees over blake2s-256, hashed by N1.
 
 The port of stark_anatomy_tpu/commit/merkle.py: ``MerkleTree`` with
-``from_limbs_paired``, ``open_multi``, ``verify_multi`` and
-``paired_tree_from_ints``.  The JAX package hashes the same leaves in C++
-(native/blake2b.cpp) or on the TPU (commit/device_merkle.py); its
-pure-hashlib fallbacks (native/blake2b_batch.py) compute the same
-function, and that is the path this port takes.
+``from_limbs`` and ``from_limbs_paired``, ``open_multi``, ``verify_multi``
+and ``paired_tree_from_ints``.  Leaves and levels are hashed in C++ by
+commit/native.py (N1), as the JAX package hashes them through
+native/blake2b_batch.py; the hashlib versions there are the plain ones.
+A tree built on the card is a commit/device_merkle.py:DeviceMerkleTree,
+with the same roots, paths and multiproofs.
 
 A field element hashes as its 16-byte little-endian canonical value; a
 PAIRED leaf i covers rows i and i + n/2 (the FRI fold pairing).
@@ -13,38 +14,12 @@ PAIRED leaf i covers rows i and i + n/2 (the FRI fold pairing).
 
 from __future__ import annotations
 
-from hashlib import blake2s
 from typing import List, Sequence
 
 import numpy as np
 
-from .hashing import DIGEST_LEN, elt_bytes, hash_pair
-
-
-def _hash_chunks(data: bytes, width: int) -> np.ndarray:
-    """blake2s over consecutive ``width``-byte chunks -> (k, DIGEST_LEN)."""
-    k = len(data) // width
-    out = b"".join(blake2s(data[i * width : (i + 1) * width]).digest() for i in range(k))
-    return np.frombuffer(out, dtype=np.uint8).reshape(k, DIGEST_LEN)
-
-
-def hash_encodings(encodings: Sequence[bytes]) -> np.ndarray:
-    """blake2s over each byte string -> (n, DIGEST_LEN) uint8 digests."""
-    out = b"".join(blake2s(e).digest() for e in encodings)
-    return np.frombuffer(out, dtype=np.uint8).reshape(len(encodings), DIGEST_LEN)
-
-
-def merkle_level(digests: np.ndarray) -> np.ndarray:
-    """(n, DIGEST_LEN) digests -> (n/2, DIGEST_LEN) parent digests."""
-    return _hash_chunks(np.ascontiguousarray(digests).tobytes(), 2 * DIGEST_LEN)
-
-
-def leaves_from_limb_pairs(limbs: np.ndarray) -> np.ndarray:
-    """Canonical (n, 8) limb rows -> (n/2, DIGEST_LEN) PAIRED leaf digests:
-    leaf i hashes LE16(v_i) || LE16(v_{i+n/2})."""
-    half = limbs.shape[0] // 2
-    enc = np.concatenate([limbs[:half], limbs[half : 2 * half]], axis=1).astype("<u2")
-    return _hash_chunks(enc.tobytes(), 4 * limbs.shape[1])
+from . import native as NB
+from .hashing import elt_bytes, hash_pair
 
 
 class MerkleTree:
@@ -60,12 +35,20 @@ class MerkleTree:
         if _digests is None:
             n = len(leaf_encodings)
             assert n > 0 and n & (n - 1) == 0, "leaf count must be a power of two"
-            _digests = hash_encodings(list(leaf_encodings))
+            _digests = NB.hash_encodings(list(leaf_encodings))
         self.levels: List[np.ndarray] = [_digests]
         level = _digests
         while level.shape[0] > 1:
-            level = merkle_level(level)
+            level = NB.merkle_level(level)
             self.levels.append(level)
+
+    @classmethod
+    def from_limbs(cls, canonical_limbs: np.ndarray) -> "MerkleTree":
+        """Commit to canonical (n, NLIMBS) limb rows, one leaf per element:
+        blake2s-256 over its 16-byte little-endian encoding."""
+        n = canonical_limbs.shape[0]
+        assert n > 0 and n & (n - 1) == 0, "leaf count must be a power of two"
+        return cls(_digests=NB.leaves_from_limbs(canonical_limbs))
 
     @classmethod
     def from_limbs_paired(cls, canonical_limbs: np.ndarray) -> "MerkleTree":
@@ -73,7 +56,7 @@ class MerkleTree:
         PAIRED leaves: leaf i covers rows i and i + n/2."""
         n = canonical_limbs.shape[0]
         assert n > 1 and n & (n - 1) == 0, "row count must be a power of two"
-        return cls(_digests=leaves_from_limb_pairs(np.asarray(canonical_limbs)))
+        return cls(_digests=NB.leaves_from_limb_pairs(canonical_limbs))
 
     @property
     def root(self) -> bytes:
@@ -115,10 +98,13 @@ def paired_tree_from_ints(codeword: Sequence[int]) -> MerkleTree:
     return MerkleTree(enc)
 
 
-def open_multi(tree: MerkleTree, indices) -> List[bytes]:
+def open_multi(tree, indices) -> List[bytes]:
     """Minimal batched authentication proof for a SET of leaf indices:
     level by level, only siblings that cannot be recomputed from below, in
-    sorted-index order (the verifier reproduces it exactly)."""
+    sorted-index order (the verifier reproduces it exactly).  A tree on
+    the card serves the same bytes through its own gather."""
+    if hasattr(tree, "multiproof"):
+        return tree.multiproof(indices)
     known = sorted(set(indices))
     proof: List[bytes] = []
     for level in tree.levels[:-1]:

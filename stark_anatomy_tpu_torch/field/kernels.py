@@ -17,36 +17,41 @@ Each wrapper takes int32 limb tensors (..., 8, n) in Montgomery form:
 * on a CUDA tensor it launches the kernel on the current stream, or
   raises: there is no fallback.
 
-The library is built at first use by one ``nvcc`` call into
-``_build/`` (git-ignored), cached by a hash of the source and flags, and
-loaded with ctypes.  ``LAUNCHES`` counts the launches of each kernel.
+This module also builds and loads H4 ``merkle`` (csrc/merkle.cu), the
+blake2s Merkle tree kernel, whose wrapper and plain version are in
+commit/kernels.py.  Each CUDA source is built at first use by one ``nvcc``
+call into ``_build/`` (git-ignored), the calls side by side, cached by a
+hash of the source and flags (utils/build.py), and loaded with ctypes.
+``LAUNCHES`` counts the launches of each kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
 import os
 import shutil
-import subprocess
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..utils.build import Job, build_all
 from .limb_arith import add_mod_rows, carry_rows, cond_sub_p_rows, sub_mod_rows
 from .limbs import LIMB_BITS, MASK, NLIMBS, NPRIME, R, int_to_limbs
 from .scalar import P
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "field.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = {                       # library stem -> CUDA source
+    "stark_field": os.path.join(_PKG, "csrc", "field.cu"),
+    "stark_merkle": os.path.join(_PKG, "csrc", "merkle.cu"),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 BINARY = ("mont_mul", "add_mod", "sub_mod")
-KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "rescue_perm", "ntt")
+KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "rescue_perm", "ntt", "merkle")
+LIBRARY = {name: "stark_merkle" if name == "merkle" else "stark_field" for name in KERNELS}
 RESCUE_M = 2            # Rescue-Prime state width
 RESCUE_ROUNDS = 27
 # The Rescue S-box x^(1/3) is x^ALPHA_INV, ALPHA_INV = (2p - 1)/3 =
@@ -71,7 +76,7 @@ NTT_MAX = 8192          # H3 holds a whole transform in one block's shared memor
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 build_log = ""          # nvcc's output (ptxas register use) of the last build
-_lib = None
+_libs = None
 _fns: Dict[str, object] = {}    # kernel name -> its ctypes entry point
 
 
@@ -92,29 +97,16 @@ def _nvcc() -> str:
     path = os.path.join(home, "bin", "nvcc")
     if os.path.exists(path):
         return path
-    raise RuntimeError("nvcc not found: the field kernels are built from csrc/field.cu")
+    raise RuntimeError("nvcc not found: the kernels are built from csrc/field.cu and csrc/merkle.cu")
 
 
-def build() -> str:
-    """Compile csrc/field.cu unless this source was built already; returns
-    the path of the shared library."""
+def build() -> Dict[str, str]:
+    """Compile each CUDA source that was not built already, one ``nvcc``
+    call per source, all at once; returns {library stem: path}."""
     global build_log
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"libstark_field_{key}.so")
-    if os.path.exists(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    build_log = proc.stdout + proc.stderr
-    os.replace(tmp, lib)
-    return lib
+    paths, log = build_all([Job(stem, _nvcc(), NVCC_FLAGS, src) for stem, src in SOURCES.items()])
+    build_log = log or build_log
+    return paths
 
 
 _BINARY_ARGTYPES = (
@@ -128,20 +120,23 @@ _ARGTYPES = {
     "ntt": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 2
     + [ctypes.c_int64] * 3 + [ctypes.c_void_p] + [ctypes.c_int64] * 3
     + [ctypes.c_void_p] * 2 + [ctypes.c_int],
+    "merkle": [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 4
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
 }
 
 
-def load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
+def load() -> Dict[str, ctypes.CDLL]:
+    """Build (at first use) and load every kernel library."""
+    global _libs
+    if _libs is None:
+        libs = {stem: ctypes.CDLL(path) for stem, path in build().items()}
         for name in KERNELS:
-            fn = getattr(lib, "stark_" + name)
+            fn = getattr(libs[LIBRARY[name]], "stark_" + name)
             fn.argtypes = _ARGTYPES.get(name, _BINARY_ARGTYPES)
             fn.restype = ctypes.c_int
             _fns[name] = fn
-        _lib = lib
-    return _lib
+        _libs = libs
+    return _libs
 
 
 def _entry(name: str):

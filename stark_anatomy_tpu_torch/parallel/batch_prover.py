@@ -4,10 +4,11 @@ device pipeline.
 The port of stark_anatomy_tpu/parallel/batch_prover.py.  FastRPSSS signs
 through it with B = 1.  The device phases run as (B, ...) tensors over the
 field kernels; the per-proof host work (Merkle roots, Fiat-Shamir
-challenges, transcript assembly) loops over the batch.  Ported: the
-host-FRI branch, taken while B*N <= HOST_FRI_MAX (a signature is B = 1,
-N = 4096).  The batched device FRI (``_fri_batch``) waits for the batch
-signing slice.
+challenges, transcript assembly) loops over the batch, and the stark's
+``timer`` records the JAX package's five phases (pipeline, commit,
+combination, fri, openings).  Ported: the host-FRI branch, taken while
+B*N <= HOST_FRI_MAX (a signature is B = 1, N = 4096).  The batched device
+FRI (``_fri_batch``) waits for the batch signing slice.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from ..models import rescue_prime as RP
 from ..ops import ntt as NTT
 from ..ops.domain import mont_const
 from ..protocols.fast_stark import FastStark, TransitionZerofier
-from ..utils.convert import canonical_np, device_from_ints, gather_rows, int_from_row
+from ..commit.device_merkle import gather_rows
+from ..utils.convert import canonical_np, device_from_ints, int_from_row
 
 
 class BatchProver:
@@ -123,59 +125,68 @@ class BatchProver:
         inv_bz = torch.stack([tb[0] for tb in tables])     # (B, R, L, N)
         interp = torch.stack([tb[1] for tb in tables])
 
-        bq_lde, tq_lde, rand_lde = self._phase1_impl(
-            sk_dev, rand_rows, rand_poly, inv_bz, interp
-        )
-        bq_np = canonical_np(bq_lde)                       # (B, R, N, L)
-        rand_np = canonical_np(rand_lde)                   # (B, N, L)
+        # the JAX package's five phases (parallel/batch_prover.py:prove_batch);
+        # each ends in a copy to the host or in host work, so it waits for
+        # the card without a synchronisation of its own
+        timer = stark.timer
+        with timer.phase("pipeline"):
+            bq_lde, tq_lde, rand_lde = self._phase1_impl(
+                sk_dev, rand_rows, rand_poly, inv_bz, interp
+            )
+            bq_np = canonical_np(bq_lde)                   # (B, R, N, L)
+            rand_np = canonical_np(rand_lde)               # (B, N, L)
 
         # per-proof commitments + Fiat-Shamir weights
-        bq_trees = [
-            [MerkleTree.from_limbs_paired(bq_np[i][s]) for s in range(R)]
-            for i in range(B)
-        ]
-        rand_trees = [MerkleTree.from_limbs_paired(rand_np[i]) for i in range(B)]
-        weight_cols = []
-        n_weights = 1 + 2 * len(self.air) + 2 * R
-        for i in range(B):
-            ps = proof_streams[i]
-            for s in range(R):
-                ps.push(bq_trees[i][s].root)
-            ps.push(rand_trees[i].root)
-            ws = stark.sample_weights(n_weights, ps.prover_fiat_shamir())
-            weight_cols.append(torch.stack([mont_const(w.value, dev) for w in ws]))
-        weights = torch.stack(weight_cols)                 # (B, W, L, 1)
+        with timer.phase("commit"):
+            bq_trees = [
+                [MerkleTree.from_limbs_paired(bq_np[i][s]) for s in range(R)]
+                for i in range(B)
+            ]
+            rand_trees = [MerkleTree.from_limbs_paired(rand_np[i]) for i in range(B)]
+            weight_cols = []
+            n_weights = 1 + 2 * len(self.air) + 2 * R
+            for i in range(B):
+                ps = proof_streams[i]
+                for s in range(R):
+                    ps.push(bq_trees[i][s].root)
+                ps.push(rand_trees[i].root)
+                ws = stark.sample_weights(n_weights, ps.prover_fiat_shamir())
+                weight_cols.append(torch.stack([mont_const(w.value, dev) for w in ws]))
+            weights = torch.stack(weight_cols)             # (B, W, L, 1)
 
-        tq_bounds = stark.transition_quotient_degree_bounds(self.air)
-        bq_bounds = stark.boundary_quotient_degree_bounds(
-            stark.randomized_trace_length, boundaries[0]
-        )
-        tq_shift = torch.stack([stark._x_lde_pow(max_degree - b) for b in tq_bounds])
-        bq_shift = torch.stack([stark._x_lde_pow(max_degree - b) for b in bq_bounds])
-        combos = self._phase2_impl(bq_lde, tq_lde, rand_lde, weights, tq_shift, bq_shift)
+        with timer.phase("combination"):
+            tq_bounds = stark.transition_quotient_degree_bounds(self.air)
+            bq_bounds = stark.boundary_quotient_degree_bounds(
+                stark.randomized_trace_length, boundaries[0]
+            )
+            tq_shift = torch.stack([stark._x_lde_pow(max_degree - b) for b in tq_bounds])
+            bq_shift = torch.stack([stark._x_lde_pow(max_degree - b) for b in bq_bounds])
+            combos = self._phase2_impl(bq_lde, tq_lde, rand_lde, weights, tq_shift, bq_shift)
 
         # FRI on the host: one transfer of the combination codewords
-        combo_np = canonical_np(combos)                    # (B, N, L)
-        indices_per_proof = []
-        for i in range(B):
-            ints = [int_from_row(combo_np[i][j]) for j in range(N)]
-            indices_per_proof.append(stark.fri.prove_host(ints, proof_streams[i]))
+        with timer.phase("fri"):
+            combo_np = canonical_np(combos)                # (B, N, L)
+            indices_per_proof = []
+            for i in range(B):
+                ints = [int_from_row(combo_np[i][j]) for j in range(N)]
+                indices_per_proof.append(stark.fri.prove_host(ints, proof_streams[i]))
 
         # linked openings per proof (paired leaves: multiproof over the
         # reduced index set, values at the full quadrupled set)
         proofs = []
-        for i in range(B):
-            ps = proof_streams[i]
-            indices = indices_per_proof[i]
-            duplicated = indices + [(idx + stark.expansion_factor) % N for idx in indices]
-            quadrupled = sorted(duplicated + [(idx + N // 2) % N for idx in duplicated])
-            leaf_indices = sorted({idx % (N // 2) for idx in duplicated})
-            for s in range(R):
-                ps.push(gather_rows(bq_np[i][s], quadrupled))
-                ps.push(open_multi(bq_trees[i][s], leaf_indices))
-            ps.push(gather_rows(rand_np[i], quadrupled))
-            ps.push(open_multi(rand_trees[i], leaf_indices))
-            ps.push(gather_rows(self.tz.rows, quadrupled))
-            ps.push(open_multi(self.tz.tree, leaf_indices))
-            proofs.append(ps.serialize())
+        with timer.phase("openings"):
+            for i in range(B):
+                ps = proof_streams[i]
+                indices = indices_per_proof[i]
+                duplicated = indices + [(idx + stark.expansion_factor) % N for idx in indices]
+                quadrupled = sorted(duplicated + [(idx + N // 2) % N for idx in duplicated])
+                leaf_indices = sorted({idx % (N // 2) for idx in duplicated})
+                for s in range(R):
+                    ps.push(gather_rows(bq_np[i][s], quadrupled))
+                    ps.push(open_multi(bq_trees[i][s], leaf_indices))
+                ps.push(gather_rows(rand_np[i], quadrupled))
+                ps.push(open_multi(rand_trees[i], leaf_indices))
+                ps.push(gather_rows(self.tz.rows, quadrupled))
+                ps.push(open_multi(self.tz.tree, leaf_indices))
+                proofs.append(ps.serialize())
         return proofs

@@ -14,10 +14,13 @@ preprocessed transition-zerofier section), hence the same proof bytes:
 
 All field arithmetic goes through field/ops.py, so on the card it runs in
 the hand-written kernels.  Ported here: the host-zerofier and n <= 2048
-branches, ``prove`` (with FRI on the host) and ``verify`` with the
-batched device check.  The large-trace branches (rolling zerofier,
-blocked-coset LDE, bulk device randomness) and the generic AIR compiler
-(``compile_air``) wait for later slices and raise NotImplementedError.
+branches, ``prove`` (with FRI on the host; the generic AIR compiler
+``compile_air`` where no model evaluator is given), the commitments (on
+the host by N1, or on the card by H4 when commit/device_merkle.py:
+use_device_commit says so), ``verify`` with the batched device check, and
+the per-phase ``timer``.  The large-trace branches (rolling zerofier,
+blocked-coset LDE, bulk device randomness) wait for later slices and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,6 +32,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..commit.device_merkle import (
+    device_commit_paired,
+    device_commit_paired_many,
+    gather_rows,
+    use_device_commit,
+)
 from ..commit.merkle import MerkleTree, open_multi, verify_multi
 from ..config import resolve_device
 from ..errors import MalformedProof, VerificationError, rejects_malformed
@@ -40,7 +49,8 @@ from ..ops.domain import DOMAINS, mont_const
 from ..poly.host_ntt import host_zerofier
 from ..poly.multivariate import MPolynomial
 from ..transcript.proof_stream import ProofStream
-from ..utils.convert import canonical_np, device_from_ints, gather_rows, ints_from_device
+from ..utils.convert import canonical_np, device_from_ints, ints_from_device
+from ..utils.profiling import PhaseTimer
 from .stark import Boundary, StarkParams
 
 
@@ -50,9 +60,9 @@ class TransitionZerofier:
 
     def __init__(self, codeword, rows, inv_codeword, tree):
         self.codeword = codeword              # (L, N_fri) Montgomery, or None
-        self.rows = rows                      # canonical (N_fri, L) numpy rows
+        self.rows = rows                      # canonical (N_fri, L) numpy rows, or DeviceRows
         self.inv_codeword = inv_codeword      # (L, N_fri) Montgomery
-        self.tree = tree                      # MerkleTree
+        self.tree = tree                      # MerkleTree or DeviceMerkleTree
 
     @property
     def root(self) -> bytes:
@@ -71,6 +81,10 @@ class FastStark(StarkParams):
         self._bz_cache: Dict[tuple, tuple] = {}
         self._xpow_cache: Dict[int, torch.Tensor] = {}
         self._x_lde_arr = None
+        self._air_fn_cache: Dict[tuple, object] = {}
+        # per-phase wall-clock seconds under the JAX package's phase names;
+        # read ``self.timer.report()`` after prove (utils/profiling.py)
+        self.timer = PhaseTimer()
 
     # ------------------------------------------------------------------
     # preprocessing
@@ -150,15 +164,44 @@ class FastStark(StarkParams):
         }
         return self._interp_cache
 
+    def _merkle_from_canon(self, canon) -> MerkleTree:
+        """Commitment hook: the paired-leaf tree over canonical host rows."""
+        return MerkleTree.from_limbs_paired(canon)
+
     def _commit_rows(self, codeword: torch.Tensor):
-        """Commit one (L, N) codeword: canonical host rows + paired-leaf tree."""
+        """Commit one (L, N) codeword.  Returns (rows, tree): rows is a
+        canonical opening-value accessor.  On the card at
+        DEVICE_COMMIT_MIN elements or more (or when STARK_TPU_DEVICE_HASH
+        forces it) the tree is built where the codeword lies, by H4, and
+        only the root is copied; else the canonical rows are copied to the
+        host and hashed by N1.  Both give the same bytes."""
+        if use_device_commit(codeword.shape[-1], codeword.device):
+            return device_commit_paired(codeword)
         canon = canonical_np(codeword)
-        return canon, MerkleTree.from_limbs_paired(canon)
+        return canon, self._merkle_from_canon(canon)
 
     def _commit_rows_many(self, codewords: torch.Tensor):
-        """Commit R stacked codewords (R, L, N) with one device->host copy."""
+        """Commit R stacked codewords (R, L, N): on the card, one set of H4
+        launches and one root copy for all R; on the host, one copy of the
+        canonical rows for all R."""
+        R = codewords.shape[0]
+        if R == 1:
+            return [self._commit_rows(codewords[0])]
+        if use_device_commit(codewords.shape[-1], codewords.device):
+            return device_commit_paired_many(codewords)
         canon = canonical_np(codewords)                           # (R, N, L)
-        return [(canon[s], MerkleTree.from_limbs_paired(canon[s])) for s in range(canon.shape[0])]
+        return [(canon[s], self._merkle_from_canon(canon[s])) for s in range(R)]
+
+    def _compiled_air(self, transition_constraints):
+        """The generic pointwise AIR evaluator, cached by the constraints'
+        content, so repeated proofs reuse one evaluator."""
+        key = tuple(
+            tuple(sorted((k, c.value) for k, c in tc.dictionary.items()))
+            for tc in transition_constraints
+        )
+        if key not in self._air_fn_cache:
+            self._air_fn_cache[key] = compile_air(transition_constraints)
+        return self._air_fn_cache[key]
 
     def _trace_lde(self, columns: torch.Tensor) -> torch.Tensor:
         """(..., R, L, n) trace columns -> (..., R, L, N_fri) LDE; the trace
@@ -231,24 +274,22 @@ class FastStark(StarkParams):
         air_evaluator=None,
         urandom=os.urandom,
     ) -> bytes:
-        """Generate a proof.  ``air_evaluator`` is a device function
-        (x_lde, current, next_) -> (C, L, N) evaluating the transition
-        constraints pointwise (the JAX package's generic ``compile_air``
-        fallback is not ported yet).  The trace comes as host rows; the
-        JAX package's ``trace_columns`` input waits for the MiMC slice.
-        Randomness is drawn from ``urandom`` in the JAX package's order,
-        so a seeded run gives the same bytes."""
-        if air_evaluator is None:
-            raise NotImplementedError(
-                "the generic AIR compiler (stark_anatomy_tpu/protocols/fast_stark.py:"
-                "compile_air) is not ported yet: pass air_evaluator"
-            )
+        """Generate a proof.  ``air_evaluator``, if given, is a device
+        function (x_lde, current, next_) -> (C, L, N) evaluating the
+        transition constraints pointwise; otherwise the symbolic
+        constraints are compiled generically (``compile_air``).  The trace
+        comes as host rows; the JAX package's ``trace_columns`` input waits
+        for the MiMC slice.  Randomness is drawn from ``urandom`` in the
+        JAX package's order, so a seeded run gives the same bytes.  Each
+        step adds its host seconds to ``self.timer`` under the JAX
+        package's phase names."""
         if proof_stream is None:
             proof_stream = ProofStream()
         R = self.num_registers
         N = self.fri_domain_length
         dev = self.device
         t = self._interp_tables()
+        timer = self.timer
 
         # randomized trace columns: (R, L, n)
         rand_rows = [
@@ -261,21 +302,27 @@ class FastStark(StarkParams):
         )
         n_rows = len(rows)
 
-        trace_lde = self._trace_lde(columns)                     # (R, L, N)
+        with timer.phase("trace_lde"):
+            trace_lde = self._trace_lde(columns)                 # (R, L, N)
 
         # boundary quotients, committed
-        inv_bz, interp = self._boundary_tables(boundary)
-        bq_lde = _bq_core(trace_lde, interp, inv_bz)             # (R, L, N)
-        bq_trees: List[MerkleTree] = []
-        bq_rows = []
-        for rows_s, tree in self._commit_rows_many(bq_lde):
-            bq_rows.append(rows_s)
-            bq_trees.append(tree)
-            proof_stream.push(tree.root)
+        with timer.phase("boundary_quotients"):
+            inv_bz, interp = self._boundary_tables(boundary)
+            bq_lde = _bq_core(trace_lde, interp, inv_bz)         # (R, L, N)
+        with timer.phase("commit_bq"):
+            bq_trees = []
+            bq_rows = []
+            for rows_s, tree in self._commit_rows_many(bq_lde):
+                bq_rows.append(rows_s)
+                bq_trees.append(tree)
+                proof_stream.push(tree.root)
 
         # transition quotients: pointwise AIR / zerofier
-        air_q = _air_quotient_fn(air_evaluator, self.expansion_factor)
-        tq_lde = air_q(t["x_lde"], trace_lde, transition_zerofier.inv_codeword)
+        with timer.phase("air_quotients"):
+            if air_evaluator is None:
+                air_evaluator = self._compiled_air(transition_constraints)
+            air_q = _air_quotient_fn(air_evaluator, self.expansion_factor)
+            tq_lde = air_q(t["x_lde"], trace_lde, transition_zerofier.inv_codeword)
 
         # randomizer polynomial
         max_degree = self.max_degree(transition_constraints)
@@ -283,12 +330,14 @@ class FastStark(StarkParams):
             raise NotImplementedError(
                 "bulk device randomness (stark_anatomy_tpu/utils/rand.py) is not ported yet"
             )
-        rand_coeffs = [self.field.sample(urandom(17)).value for _ in range(max_degree + 1)]
-        rand_lde = NTT.coset_evaluate(
-            device_from_ints(rand_coeffs, dev), self.generator.value, N
-        )
-        rand_rows, rand_tree = self._commit_rows(rand_lde)
-        proof_stream.push(rand_tree.root)
+        with timer.phase("randomizer_poly"):
+            rand_coeffs = [self.field.sample(urandom(17)).value for _ in range(max_degree + 1)]
+            rand_lde = NTT.coset_evaluate(
+                device_from_ints(rand_coeffs, dev), self.generator.value, N
+            )
+        with timer.phase("commit_randomizer"):
+            rand_rows, rand_tree = self._commit_rows(rand_lde)
+            proof_stream.push(rand_tree.root)
 
         # Fiat-Shamir weights
         weights = self.sample_weights(
@@ -296,28 +345,31 @@ class FastStark(StarkParams):
         )
 
         # weighted combination, pointwise: w_a*q + w_b*x^s*q = q*(w_a + w_b*x^s)
-        tq_bounds = self.transition_quotient_degree_bounds(transition_constraints)
-        bq_bounds = self.boundary_quotient_degree_bounds(n_rows, boundary)
-        tq_shift = torch.stack([self._x_lde_pow(max_degree - b) for b in tq_bounds])
-        bq_shift = torch.stack([self._x_lde_pow(max_degree - b) for b in bq_bounds])
-        w_dev = torch.stack([mont_const(wv.value, dev) for wv in weights])
-        combo = _combination_core(rand_lde, tq_lde, bq_lde, tq_shift, bq_shift, w_dev)
+        with timer.phase("combination"):
+            tq_bounds = self.transition_quotient_degree_bounds(transition_constraints)
+            bq_bounds = self.boundary_quotient_degree_bounds(n_rows, boundary)
+            tq_shift = torch.stack([self._x_lde_pow(max_degree - b) for b in tq_bounds])
+            bq_shift = torch.stack([self._x_lde_pow(max_degree - b) for b in bq_bounds])
+            w_dev = torch.stack([mont_const(wv.value, dev) for wv in weights])
+            combo = _combination_core(rand_lde, tq_lde, bq_lde, tq_shift, bq_shift, w_dev)
 
         # FRI on the host over the combination codeword (the transcript is
         # byte-identical to the JAX package's device FRI)
-        indices = self.fri.prove_host(ints_from_device(combo), proof_stream)
+        with timer.phase("fri"):
+            indices = self.fri.prove_host(ints_from_device(combo), proof_stream)
 
         # linked openings at quadrupled indices (reference: fast_stark.py:154-177)
-        duplicated = indices + [(i + self.expansion_factor) % N for i in indices]
-        quadrupled = sorted(duplicated + [(i + N // 2) % N for i in duplicated])
-        leaf_indices = sorted({i % (N // 2) for i in duplicated})
-        for s in range(R):
-            proof_stream.push(gather_rows(bq_rows[s], quadrupled))
-            proof_stream.push(open_multi(bq_trees[s], leaf_indices))
-        proof_stream.push(gather_rows(rand_rows, quadrupled))
-        proof_stream.push(open_multi(rand_tree, leaf_indices))
-        proof_stream.push(gather_rows(transition_zerofier.rows, quadrupled))
-        proof_stream.push(open_multi(transition_zerofier.tree, leaf_indices))
+        with timer.phase("openings"):
+            duplicated = indices + [(i + self.expansion_factor) % N for i in indices]
+            quadrupled = sorted(duplicated + [(i + N // 2) % N for i in duplicated])
+            leaf_indices = sorted({i % (N // 2) for i in duplicated})
+            for s in range(R):
+                proof_stream.push(gather_rows(bq_rows[s], quadrupled))
+                proof_stream.push(open_multi(bq_trees[s], leaf_indices))
+            proof_stream.push(gather_rows(rand_rows, quadrupled))
+            proof_stream.push(open_multi(rand_tree, leaf_indices))
+            proof_stream.push(gather_rows(transition_zerofier.rows, quadrupled))
+            proof_stream.push(open_multi(transition_zerofier.tree, leaf_indices))
         return proof_stream.serialize()
 
     # ------------------------------------------------------------------
@@ -607,3 +659,55 @@ def _combination_core(rand_lde, tq_lde, bq_lde, tq_shift, bq_shift, weights):
         terms.append(F.mont_mul(bq_lde[s], ws))
         idx += 2
     return F.field_sum(torch.stack(terms))
+
+
+# ---------------------------------------------------------------------------
+# generic pointwise AIR compiler
+# ---------------------------------------------------------------------------
+
+def compile_air(transition_constraints: Sequence[MPolynomial]):
+    """Compile symbolic AIR constraints into a pointwise device evaluator
+    (the port of stark_anatomy_tpu/protocols/fast_stark.py:compile_air).
+
+    Returns fn(x_lde, current, next_) -> (C, L, N): for each constraint,
+    the sum over its dictionary terms of coeff * prod(var_i ^ e_i), with
+    per-variable power tables built by repeated products.  Models on the
+    hot path supply a hand-written evaluator instead
+    (models/rescue_prime.py); this is the generic fallback, the device
+    analog of MPolynomial.evaluate.
+    """
+
+    def evaluator(x_lde, current, next_):
+        R = current.shape[0]
+        vars_ = [x_lde] + [current[s] for s in range(R)] + [next_[s] for s in range(R)]
+        nvars = len(vars_)
+        # max exponent per variable across all constraints
+        max_exp = [0] * nvars
+        for c in transition_constraints:
+            for k in c.dictionary.keys():
+                for vi, e in enumerate(k):
+                    if vi < nvars:
+                        max_exp[vi] = max(max_exp[vi], e)
+        # power tables: powers[v][e] = vars_[v]^e
+        powers = []
+        for v in range(nvars):
+            tab = [None, vars_[v]]
+            for e in range(2, max_exp[v] + 1):
+                tab.append(F.mont_mul(tab[-1], vars_[v]))
+            powers.append(tab)
+
+        outs = []
+        for c in transition_constraints:
+            acc = None
+            for k, coeff in c.dictionary.items():
+                term = mont_const(coeff.value, x_lde.device)     # (L, 1), broadcast
+                for vi, e in enumerate(k):
+                    if e > 0 and vi < nvars:
+                        term = F.mont_mul(term, powers[vi][e])
+                acc = term if acc is None else F.add(acc, term)
+            if acc is None:
+                acc = torch.zeros_like(x_lde)
+            outs.append(acc.expand(x_lde.shape))
+        return torch.stack(outs)
+
+    return evaluator

@@ -57,9 +57,12 @@ def int_from_row(row: np.ndarray) -> int:
 
 
 def gather_rows(rows, indices) -> List[int]:
-    """Canonical ints at ``indices`` of a layer held as element-major numpy
-    rows or as a host int list (the port of
-    stark_anatomy_tpu/commit/device_merkle.py:gather_rows for host rows)."""
+    """Canonical ints at ``indices`` of a layer held on the card
+    (commit/device_merkle.py:DeviceRows, one gather), as element-major
+    numpy rows or as a host int list (the port of
+    stark_anatomy_tpu/commit/device_merkle.py:gather_rows)."""
+    if hasattr(rows, "gather"):
+        return rows.gather(indices)
     if isinstance(rows, list):
         return [rows[i] for i in indices]
     return [int_from_row(rows[i]) for i in indices]

@@ -230,19 +230,32 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 
 def test_build_is_one_nvcc_call_into_the_build_dir(monkeypatch, tmp_path):
-    calls = []
+    """One nvcc call per CUDA source, all started before any is waited on,
+    cached by the source's hash."""
+    from stark_anatomy_tpu_torch.utils import build as B
 
-    def fake_run(cmd, capture_output, text):
-        calls.append(cmd)
-        open(cmd[cmd.index("-o") + 1], "w").close()
-        return type("Done", (), {"returncode": 0, "stdout": "", "stderr": ""})()
+    calls, waited = [], []
 
-    monkeypatch.setattr(K, "BUILD_DIR", str(tmp_path))
+    class FakeCompile:
+        def __init__(self, cmd, **kwargs):
+            assert not waited, "a build started after another was waited on"
+            calls.append(cmd)
+            open(cmd[cmd.index("-o") + 1], "w").close()
+            self.returncode = 0
+
+        def communicate(self):
+            waited.append(self)
+            return "", None
+
+    monkeypatch.setattr(B, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(K, "_nvcc", lambda: "nvcc")
-    monkeypatch.setattr(K.subprocess, "run", fake_run)
-    lib = K.build()
-    assert K.build() == lib and len(calls) == 1          # cached by source hash
-    cmd = calls[0]
-    assert cmd[0] == "nvcc" and cmd[-1] == K.SOURCE
-    assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
-    assert lib.startswith(str(tmp_path)) and lib.endswith(".so")
+    monkeypatch.setattr(B.subprocess, "Popen", FakeCompile)
+    libs = K.build()
+    assert K.build() == libs and len(calls) == len(K.SOURCES)     # cached by source hash
+    assert sorted(cmd[-1] for cmd in calls) == sorted(K.SOURCES.values())
+    for cmd in calls:
+        assert cmd[0] == "nvcc"
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-shared" in cmd
+    assert set(libs) == set(K.SOURCES)
+    for lib in libs.values():
+        assert lib.startswith(str(tmp_path)) and lib.endswith(".so")

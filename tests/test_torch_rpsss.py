@@ -119,3 +119,13 @@ def test_fast_stark_prove_is_byte_identical_to_jax(monkeypatch):
     assert ts.verify(tproof, air, boundary, ttz.root, air_point_evaluator=TR.make_point_air(ts))
     wrong = [(c, r, v + field.one()) for c, r, v in boundary]
     assert not ts.verify(tproof, air, wrong, ttz.root, air_index_evaluator=index_air)
+
+
+def test_sign_records_the_jax_prove_batch_phases(schemes, signatures):
+    """The port's PhaseTimer holds the JAX package's five prove_batch phase
+    names after a sign, each timed once per sign."""
+    jax_scheme, port = schemes
+    phases = {"pipeline", "commit", "combination", "fri", "openings"}
+    assert set(port.stark.timer.totals) == set(jax_scheme.stark.timer.totals) == phases
+    assert len(set(port.stark.timer.counts.values())) == 1
+    assert all(port.stark.timer.totals[name] > 0 for name in phases)

@@ -23,7 +23,13 @@ builds its kernels, and prints one JSON line:
   domain (the prover's LDE), ms per call as for ``ops_ms``, and
   ``lde_device_us``: its device microseconds, all its kernels summed;
 * ``sign_s`` and ``verify_s``: ``FastRPSSS()`` sign and verify at the
-  production parameters, median of 5 warm runs after one warm-up;
+  production parameters, median of 5 warm runs after one warm-up, and
+  ``phases``: the prover's PhaseTimer seconds per phase, the mean over
+  those 5 signs (null for a tree without the timer);
+* ``host_tree4096_ms``: one paired-leaf Merkle tree over 4096 canonical
+  rows through ``MerkleTree.from_limbs_paired``, host milliseconds, the
+  median of 50 after a warm-up (a tree with N1 hashes in C++, an older
+  one with hashlib);
 * ``sign_kernel_launches``: the port's own kernel launches in one warm
   sign (its launch counters), and ``launches_by_caller``: for that sign
   and for one verify, the calls of each kernel wrapper in
@@ -215,8 +221,23 @@ def main() -> int:
     doc = b"port compare"
     sig = scheme.sign(sk, doc)
     assert scheme.verify(pk, doc, sig)
+    timer = getattr(scheme.stark, "timer", None)
+    before = dict(timer.totals) if timer is not None else {}
     sign_s = median_s(lambda: scheme.sign(sk, doc))
+    phases = None if timer is None else {
+        name: (total - before.get(name, 0.0)) / 5 for name, total in timer.totals.items()}
     verify_s = median_s(lambda: scheme.verify(pk, doc, sig))
+    from stark_anatomy_tpu_torch.commit.merkle import MerkleTree
+    from stark_anatomy_tpu_torch.utils.convert import canonical_np
+
+    rows = canonical_np(x.reshape(2, 8, 4096)[0])
+    MerkleTree.from_limbs_paired(rows)
+    tree_s = []
+    for _ in range(50):
+        t = time.perf_counter()
+        MerkleTree.from_limbs_paired(rows)
+        tree_s.append(time.perf_counter() - t)
+    host_tree4096_ms = statistics.median(tree_s) * 1e3
     pkg = os.path.dirname(os.path.abspath(stark_anatomy_tpu_torch.__file__))
     K.reset_launch_counts()
     by_caller = {"sign": launches_by_caller(K, pkg, lambda: scheme.sign(sk, doc))}
@@ -233,7 +254,8 @@ def main() -> int:
         "root": root, "card": smi, "ops_ms": ops_ms, "pow_device_us": pow_device_us,
         "trace_s": trace_s, "trace_device_us": trace_device_us,
         "hash4096_device_us": hash4096_device_us, "lde_ms": lde_ms, "lde_device_us": lde_device_us,
-        "sign_s": sign_s, "verify_s": verify_s,
+        "sign_s": sign_s, "verify_s": verify_s, "phases": phases,
+        "host_tree4096_ms": host_tree4096_ms,
         "sign_kernel_launches": sign_kernel_launches, "launches_by_caller": by_caller,
         "sign_device_launches": sign_device_launches, "sign_busy_share": sign_busy_share,
     }))

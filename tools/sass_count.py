@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Count the SASS instructions of the port's field kernels, loop by loop.
+"""Count the SASS instructions of the port's CUDA kernels, loop by loop.
 
     python3 tools/sass_count.py [--root DIR] [--label NAME]
 
-Builds ``stark_anatomy_tpu_torch``'s field library from DIR (default: this
-checkout) as the package itself does, disassembles it with ``cuobjdump
--sass``, and prints one JSON line for the kernels named in KERNELS:
+Builds ``stark_anatomy_tpu_torch``'s kernel libraries (csrc/field.cu and
+csrc/merkle.cu) from DIR (default: this checkout) as the package itself
+does, disassembles them with ``cuobjdump -sass``, and prints one JSON line
+for the kernels named in KERNELS:
 
 * ``registers``: the registers a thread uses (``cuobjdump -res-usage``);
-* ``instructions``: the kernel's SASS instructions (NOPs left out);
+* ``instructions``: the kernel's SASS instructions (NOPs left out), and
+  ``opcodes``: the ten most frequent opcodes with their counts;
 * ``loops``: each backward branch and the instructions from its target to
   it (the loop body as laid out, inner loops included), with the counts
   of the multiply opcodes (``IMAD.WIDE.U32`` and ``IMAD.HI.U32`` are one
@@ -37,7 +39,7 @@ import shutil
 import subprocess
 import sys
 
-KERNELS = ("pow_kernel", "rescue_kernel", "binary_kernel", "ntt_kernel")
+KERNELS = ("pow_kernel", "rescue_kernel", "binary_kernel", "ntt_kernel", "merkle_kernel")
 NO_DEST = ("ST", "BRA", "EXIT", "BAR", "NOP", "BSSY", "BSYNC", "WARPSYNC", "RET", "CALL",
            "JMP", "YIELD", "MEMBAR", "RED", "DEPBAR", "ERRBAR", "CCTL", "BPT")
 INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -187,10 +189,13 @@ def main() -> int:
     sys.path.insert(0, root)
     from stark_anatomy_tpu_torch.field import kernels as K
 
-    lib = K.build()
-    sass = subprocess.run([cuobjdump(), "-sass", lib], capture_output=True, text=True, check=True).stdout
-    usage = subprocess.run([cuobjdump(), "-res-usage", lib], capture_output=True, text=True,
-                           check=True).stdout
+    libs = K.build()
+    sass, usage = "", ""
+    for lib in libs.values():
+        sass += subprocess.run([cuobjdump(), "-sass", lib], capture_output=True, text=True,
+                               check=True).stdout
+        usage += subprocess.run([cuobjdump(), "-res-usage", lib], capture_output=True, text=True,
+                                check=True).stdout
     registers = dict(re.findall(r"Function (\S+):\s*REG:(\d+)", usage))
     funcs = parse(sass)
     out_dir = os.path.join("chiprun_out", "sass", args.label)
@@ -205,12 +210,14 @@ def main() -> int:
         if kernel == "binary_kernel":
             kernel += "<" + re.search(r"MontMul|AddMod|SubMod", name).group(0) + ">"
         report[kernel] = {"registers": int(registers.get(name, -1)), "instructions": len(instrs),
+                          "opcodes": dict(collections.Counter(i[2] for i in instrs).most_common(10)),
                           "loops": loops(instrs, funcs[(name, "labels")])}
         with open(os.path.join(out_dir, re.sub(r"[<>]", "_", kernel) + ".sass"), "w") as f:
             f.write(f"// Function : {name}\n")
             for addr, guard, op, operands in instrs:
                 f.write(f"/*{addr:04x}*/ {guard + ' ' if guard else ''}{op} {', '.join(operands)} ;\n")
-    print(json.dumps({"label": args.label, "root": root, "library": os.path.basename(lib),
+    print(json.dumps({"label": args.label, "root": root,
+                      "libraries": [os.path.basename(lib) for lib in libs.values()],
                       "kernels": report}))
     return 0
 
