@@ -47,7 +47,22 @@ Phases (each prints its wall seconds):
 4. H4 at the large-trace size: the tree of a seeded codeword of 2^22
    elements on the card against N1's tree of the same codeword (root,
    the first three levels, a 64-index multiproof), with H4's time per
-   commit and N1's, the copy to the host included.
+   commit and N1's, the copy to the host included;
+5. the large-trace path: H5 ``seed_expand`` against its plain version on
+   the card at 2^16 + 1 elements and at the 2^20 path's 2^22 (a seed whose
+   round 0 rejects candidates), H6 ``fri_fold`` at the top round's
+   h = 2^23; the four-step NTT against H3's one-block path at n = 8192
+   (threshold lowered), against the plain transform at 2^16, and at 2^22
+   and 2^24 by the forward/inverse round trip and spot values of a sparse
+   polynomial computed on the host; a seeded MiMC proof at
+   ``make_stark(15, 4, 4, 8)`` with every large branch forced (rolling
+   zerofier, bulk randomness, device FRI, four-step NTT) on the card and
+   on the CPU, identical and cross-verified; then a MiMC chain of 2^20
+   steps (FRI domain 2^24) at the production parameters: preprocess, a
+   first prove and verify, three steady proves (median, phases), a false
+   output rejected, the proof's bytes, peak device memory, the launches
+   of one steady prove, its device busy share (torch.profiler), and the
+   pipelined prover over four statements against four serial proves.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 line with one record per kernel, and the result line
@@ -101,12 +116,15 @@ KERNEL_INFO = {
     "rescue_perm": ("stark_anatomy_tpu/models/rescue_prime.py:175", None),
     "ntt": ("stark_anatomy_tpu/ops/ntt.py:79", None),
     "merkle": ("stark_anatomy_tpu/commit/device_merkle.py:57", None),
+    "seed_expand": ("stark_anatomy_tpu/utils/rand.py:33", None),
+    "fri_fold": ("stark_anatomy_tpu/protocols/fri.py:43", None),
 }
 # the profiler's kernel names
 PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
                 "add_mod": "AddMod", "sub_mod": "SubMod",
                 "rescue_perm": "rescue_kernel", "ntt": "ntt_kernel",
-                "merkle": "merkle_kernel"}
+                "merkle": "merkle_kernel", "seed_expand": "seed_expand_kernel",
+                "fri_fold": "fri_fold_kernel"}
 RESCUE_BATCHES = (1, 7, 4096)
 NTT_SIZES = (1, 2, 1024, 4096, 8192)
 NTT_MAIN = (2, 8, 4096)          # the LDE: coset_evaluate of two trace columns
@@ -114,6 +132,17 @@ TREE_SIZES = (4, 64, 4096)
 TREE_MAIN = (8, 4096)            # one FRI-domain codeword: a commitment of the main path
 TREE_LARGE = 1 << 22             # the large-trace path's codeword (bench.py:229-236)
 PHASES = ("pipeline", "commit", "combination", "fri", "openings")
+# the large-trace path: bench.py:229-289 (seg_mimc) proves a MiMC chain of
+# 2^20 steps; its omicron domain is 2^22 and its FRI domain 2^24
+MIMC_STEPS = 1 << 20
+LARGE_KERNELS = ("merkle", "seed_expand", "fri_fold")    # launched on that path, not in a sign
+EXPAND_COUNTS = ((1 << 16) + 1, 1 << 22)    # 2^22: that path's randomizer coefficients
+FOLD_HALF = 1 << 23                         # its top FRI round
+NTT_LARGE = (22, 24)                        # log2 of its transforms: the trace iNTT, the LDEs
+TREE_PATH = 1 << 24                         # its largest tree: the quotients', FRI's first layer
+FOLD_BYTES = 176    # per folded element: c_i, c_{i+h}, u_i read; folded, canon, u_i^2 / 2 written
+LARGE_PHASES = ("trace_gen", "trace_lde", "boundary_quotients", "commit_bq", "air_quotients",
+                "randomizer_poly", "commit_randomizer", "combination", "fri", "openings")
 
 
 def det_urandom(seed: bytes):
@@ -291,27 +320,34 @@ def profile_sign(sign) -> None:
 # symbolic AIR, the randomness draws and their upload
 HOST_SPANS = ("trace_batch", "_phase1_impl", "from_limbs_paired", "_phase2_impl",
               "prove_host", "open_multi", "hash", "max_degree", "sample", "device_from_ints")
+# the steps of a large-trace prove: N2's chain, the boundary tables, the
+# device FRI's rounds, its copy of the host tail and the host folds and
+# trees, the query rounds, the openings' gathers, the transcript
+LARGE_SPANS = ("chain_bytes", "columns_from_words", "_boundary_tables", "_trace_lde",
+               "coset_evaluate", "_x_lde_pow", "device_sync", "commit", "fri_fold",
+               "merkle_paired", "gather_rows", "_fold_ints", "_host_tree", "query",
+               "sample_indices", "open_multi", "serialize")
 
 
-def host_profile_sign(sign) -> None:
-    """Where one sign's host time goes: cumulative seconds of the prover's
-    main steps under cProfile.  The profiler slows Python code, so the
-    shares are what to read, not the seconds."""
+def host_profile(label: str, fn, spans) -> None:
+    """Where one call's host time goes: cumulative seconds of the port's
+    functions named in ``spans`` under cProfile.  The profiler slows
+    Python code, so the shares are what to read, not the seconds."""
     import cProfile
     import pstats
 
     prof = cProfile.Profile()
     prof.enable()
-    sign()
+    fn()
     prof.disable()
     stats = pstats.Stats(prof).stats
     total = max(ct for (_, _, _, ct, _) in stats.values())
-    spans = {}
+    seen = {}
     for (path, _, func), (_, _, _, ct, _) in stats.items():
-        if func in HOST_SPANS and "stark_anatomy_tpu_torch" in path:
-            spans[func] = spans.get(func, 0.0) + ct
-    parts = ", ".join(f"{f} {spans[f]:.4f} s ({100 * spans[f] / total:.1f}%)" for f in HOST_SPANS if f in spans)
-    print(f"host profile of one sign (cProfile): total {total:.4f} s; {parts}")
+        if func in spans and "stark_anatomy_tpu_torch" in path:
+            seen[func] = seen.get(func, 0.0) + ct
+    parts = ", ".join(f"{f} {seen[f]:.4f} s ({100 * seen[f] / total:.1f}%)" for f in spans if f in seen)
+    print(f"host profile of {label} (cProfile): total {total:.4f} s; {parts}")
 
 
 def field_inputs(shape, seed: int, special=None):
@@ -340,6 +376,311 @@ def field_inputs(shape, seed: int, special=None):
     return out
 
 
+def kernel_record(name: str, max_abs_err: int, ms: float, plain_ms: float, bound) -> dict:
+    """One kernel's entry of the "kernels" line; its launches are filled in
+    from the run of the path that launches it.  No PyTorch call computes
+    any of these functions, so library_ms is null."""
+    from stark_anatomy_tpu_torch.field import kernels as K
+
+    source = "merkle.cu" if K.LIBRARY[name] == "stark_merkle" else "field.cu"
+    return {"name": name, "route": "cuda", "source": "stark_anatomy_tpu_torch/csrc/" + source,
+            "replaces": KERNEL_INFO[name][0], "launches": None, "max_abs_err": max_abs_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": None}
+
+
+def random_codeword(shape, seed: int, dev):
+    """A seeded (…, 8, n) limb tensor on the card, every value below p (the
+    top limb below p's)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, 1 << 16, shape, generator=gen, device=dev, dtype=torch.int32)
+    x[..., 7, :] &= 0x3FFF
+    return x
+
+
+def seed_tensor(label: bytes, dev):
+    """The 8 int32 words of a 32-byte seed, on the card."""
+    import numpy as np
+    import torch
+
+    words = np.frombuffer(hashlib.blake2s(label).digest(), dtype="<u4").view(np.int32).copy()
+    return torch.from_numpy(words).to(dev)
+
+
+def profile_all(fn):
+    """(wall s, device busy s, {kernel name: (launches, us)}) of one call of
+    ``fn`` under torch.profiler; busy is None if it saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    seen = device_us(prof)
+    return wall, (sum(us for _, us in seen.values()) / 1e6 if seen else None), seen
+
+
+def large_path(dev, smi, records, worst_err, compare) -> None:
+    """Phase 5: the large-trace path's kernels against their plain
+    versions, the four-step NTT, the card against the CPU with every large
+    branch forced, the 2^20-step MiMC proof and the pipelined prover."""
+    import torch
+
+    from stark_anatomy_tpu_torch.commit import kernels as MK
+    from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field.scalar import Field, FieldElement, P
+    from stark_anatomy_tpu_torch.models import mimc as MM
+    from stark_anatomy_tpu_torch.ops import ntt as NTT
+    from stark_anatomy_tpu_torch.ops.domain import DOMAINS
+    from stark_anatomy_tpu_torch.parallel.pipeline_prover import PipelinedMiMCProver
+    from stark_anatomy_tpu_torch.protocols.fri import Fri
+    from stark_anatomy_tpu_torch.utils.convert import device_from_ints, ints_from_device
+
+    def record(name, ms, plain_ms, bound):
+        return kernel_record(name, worst_err[name], ms, plain_ms, bound)
+
+    # H5 against its plain version on the card; the plain version counts
+    # the compressions its threads need (one per counter and round until
+    # both elements are accepted), which the bound counts
+    seed = seed_tensor(b"chip smoke seed expansion", dev)
+    for count in EXPAND_COUNTS:
+        got = MK.seed_expand(seed, count)
+        torch.cuda.synchronize()
+        rounds = []
+        want = MK.seed_expand_plain(seed, count, rounds)
+        assert rounds[0] > (count + 1) // 2, "round 0 rejected no candidate: pick another seed"
+        compare("seed_expand", f"count={count} ({rounds[0]} compressions)", got, want)
+    count = EXPAND_COUNTS[-1]
+    ms = time_launches(lambda: MK.seed_expand(seed, count), 20)
+    dev_us = profile_kernel("seed_expand", lambda: MK.seed_expand(seed, count), 10)
+    plain_ms = time_launches(lambda: MK.seed_expand_plain(seed, count), 1, warm=0)
+    bytes_ms = (32 * count + 32) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (rounds[0] * BLAKE2S_INSTR / INSTR_PER_S + count * MUL_OPS / INT32_OPS_PER_S) * 1e3
+    bound = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+    records["seed_expand"] = record("seed_expand", ms, plain_ms, bound)
+    print(f"  seed_expand count={count}: {ms:.6f} ms/launch, device {fmt_us(dev_us)}/launch, "
+          f"plain {plain_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}: {rounds[0]} "
+          f"compressions x {BLAKE2S_INSTR} instructions, {count} Montgomery conversions)")
+
+    # H6 at the top round of the 2^20 path
+    cw = random_codeword((8, 2 * FOLD_HALF), 3030, dev)
+    u = random_codeword((8, FOLD_HALF), 3031, dev)
+    alpha = random.Random(3032).randrange(P)
+    got = K.fri_fold(cw, u, alpha)
+    torch.cuda.synchronize()
+    want = K.fri_fold_plain(cw, u, alpha)
+    for label, g, w in zip(("folded", "canonical", "u^2"), got, want):
+        compare("fri_fold", f"h=2^{FOLD_HALF.bit_length() - 1} {label}", g, w)
+    del got, want
+    ms = time_launches(lambda: K.fri_fold(cw, u, alpha), 20)
+    dev_us = profile_kernel("fri_fold", lambda: K.fri_fold(cw, u, alpha), 10)
+    plain_ms = time_launches(lambda: K.fri_fold_plain(cw, u, alpha), 1, warm=0)
+    ops = FOLD_HALF * (4 * MUL_OPS + 3 * ADD_OPS) + FOLD_HALF // 2 * SQR_OPS
+    bound = bound_ms(1, FOLD_BYTES * FOLD_HALF, ops)
+    records["fri_fold"] = record("fri_fold", ms, plain_ms, bound)
+    print(f"  fri_fold h=2^{FOLD_HALF.bit_length() - 1}: {ms:.6f} ms/launch, device {fmt_us(dev_us)}/launch, plain "
+          f"{plain_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}: {FOLD_BYTES} bytes per element)")
+    del cw, u
+    # H4 against its plain version at the path's largest codeword (the
+    # boundary quotient's, the randomizer's, FRI's first layer) and at FRI's
+    # second layer; the largest gives its record, in place of phase 1's
+    for n, tree_seed in ((TREE_PATH // 2, 3041), (TREE_PATH, 3040)):
+        canon = random_codeword((8, n), tree_seed, dev)
+        want = []
+        plain_ms = time_launches(lambda: want.append(MK.merkle_paired_plain(canon)), 1, warm=0)
+        compare("merkle", f"(8, 2^{n.bit_length() - 1})", MK.merkle_paired(canon), want[0])
+        del want
+    passes = len(MK.tree_passes(TREE_PATH))
+    ms = time_launches(lambda: MK.merkle_paired(canon), 10)
+    per_launch = profile_kernel("merkle", lambda: MK.merkle_paired(canon), 5)
+    bound = merkle_bound(TREE_PATH, 1)
+    records["merkle"] = record("merkle", ms, plain_ms, bound)
+    print(f"  merkle (8, 2^{TREE_PATH.bit_length() - 1}): {ms:.6f} ms/commit ({passes} launches), device "
+          f"{fmt_us(None if per_launch is None else per_launch * passes)}/commit, plain "
+          f"{plain_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
+    del canon
+    torch.cuda.empty_cache()
+
+    # the four-step NTT: against H3's one-block path at 8192 with the
+    # threshold lowered, against the plain transform at 2^16, and at 2^22
+    # and 2^24 by the round trip and host-computed spot values
+    for batch in (1, 2):
+        x, post = (random_codeword((batch, 8, 8192), 3100 + batch + k, dev) for k in range(2))
+        pre = random_codeword((8, 8192), 3110 + batch, dev)
+        for inverse in (False, True):
+            want = NTT.ntt(x, inverse, pre, post[0])
+            saved, NTT.NTT_MAX = NTT.NTT_MAX, 64
+            try:
+                got = NTT.ntt(x, inverse, pre, post[0])
+            finally:
+                NTT.NTT_MAX = saved
+            torch.cuda.synchronize()
+            compare("ntt", f"four-step n=8192 batch={batch} {'inverse' if inverse else 'forward'} "
+                    f"scaled, threshold 64, against one block", got, want)
+    n = 1 << 16
+    x, pre = random_codeword((8, n), 3120, dev), random_codeword((8, n), 3121, dev)
+    for inverse in (False, True):
+        dom = DOMAINS.get(n, dev)
+        want = K.ntt_plain(x, dom["inv_powers" if inverse else "fwd_powers"],
+                           dom["n_inv"] if inverse else None, pre, None)
+        compare("ntt", f"four-step n=2^16 {'inverse' if inverse else 'forward'} against plain",
+                NTT.ntt(x, inverse, pre), want)
+    field = Field.main()
+    g = field.generator().value
+    rng = random.Random(3130)
+    for log_n in NTT_LARGE:
+        n = 1 << log_n
+        x = random_codeword((8, n), 3140 + log_n, dev)
+        back = NTT.intt(NTT.ntt(x))
+        torch.cuda.synchronize()
+        assert torch.equal(back, x), f"the four-step round trip at 2^{log_n} changed the values"
+        terms = {rng.randrange(n): rng.randrange(P) for _ in range(6)}
+        c = torch.zeros((8, n), dtype=torch.int32, device=dev)
+        c[:, list(terms)] = device_from_ints(list(terms.values()), dev)
+        w = field.primitive_nth_root(n).value
+        ks = [0, 1, n - 1] + [rng.randrange(n) for _ in range(5)]
+        for label, got, base in (("ntt", NTT.ntt(c), 1), ("coset_evaluate", NTT.coset_evaluate(c, g, n), g)):
+            vals = ints_from_device(got[:, ks])
+            for k, v in zip(ks, vals):
+                point = base * pow(w, k, P) % P
+                assert v == sum(a * pow(point, i, P) for i, a in terms.items()) % P, \
+                    f"{label} at 2^{log_n}: spot value {k} differs from the host's"
+        # the path's shapes: the trace iNTT at M, the LDEs at N.  Bound:
+        # the input and output once (and the coset table), the butterflies
+        # and a product per point for 1/n or the scale
+        inv = log_n == NTT_LARGE[0]
+        call = (lambda: NTT.intt(x)) if inv else (lambda: NTT.coset_evaluate(x, g, n))
+        ms = time_launches(call, 5)
+        wall, busy, _ = profile_all(call)
+        bound = bound_ms(1, (2 if inv else 3) * 32 * n, ntt_ops(1, n, 0 if inv else 1, inv))
+        print(f"  four-step {'intt' if inv else 'coset_evaluate'} n=2^{log_n}: round trip and 8 spot "
+              f"values of ntt and coset_evaluate equal the host's; {ms:.4f} ms/call (CUDA events), "
+              f"device busy {fmt_us(None if busy is None else busy * 1e6)} of one call, bound "
+              f"{bound[0]:.6f} ms ({bound[1]})")
+    del x, back, c
+    torch.cuda.empty_cache()
+
+    # the card against the CPU with every large branch forced
+    x_small = FieldElement(rng.randrange(P), field)
+    proofs = {}
+    saved = (NTT.NTT_MAX, NTT.HOST_ZEROFIER_MAX, Fri.HOST_TAIL_MAX)
+    os.environ["STARK_TPU_DEVICE_HASH"] = "1"
+    NTT.NTT_MAX, NTT.HOST_ZEROFIER_MAX, Fri.HOST_TAIL_MAX = 8, 1, 8
+    try:
+        for label, device in (("card", dev), ("cpu", "cpu")):
+            mimc, stark = MM.make_stark(15, 4, 4, 8, device=device)
+            stark.bulk_randomizer_threshold = 0
+            out, proof, tz = MM.prove_chain(mimc, stark, x_small, urandom=det_urandom(b"chip smoke mimc"))
+            assert MM.verify_chain(mimc, stark, x_small, out, proof, tz.root), f"the {label} rejected its proof"
+            proofs[label] = (mimc, stark, tz, out, proof)
+    finally:
+        del os.environ["STARK_TPU_DEVICE_HASH"]
+        NTT.NTT_MAX, NTT.HOST_ZEROFIER_MAX, Fri.HOST_TAIL_MAX = saved
+    (cm, cs, ctz, cout, cproof), (hm, hs, htz, hout, hproof) = proofs["card"], proofs["cpu"]
+    assert cproof == hproof and ctz.root == htz.root, "the card and the CPU proved different bytes"
+    assert MM.verify_chain(cm, cs, x_small, hout, hproof, ctz.root), "the card rejected the CPU's proof"
+    assert MM.verify_chain(hm, hs, x_small, cout, cproof, htz.root), "the CPU rejected the card's proof"
+    print(f"  MiMC make_stark(15, 4, 4, 8), every large branch forced: card and CPU proofs identical "
+          f"({len(cproof)} bytes), cross-verified")
+
+    # the 2^20-step chain at the production parameters
+    mimc, stark = MM.make_stark(MIMC_STEPS)
+    print(f"  MiMC {MIMC_STEPS} steps: trace {stark.original_trace_length}, omicron domain {stark.omicron_domain_length}, "
+          f"FRI domain {stark.fri_domain_length}")
+    x = FieldElement(rng.randrange(P), field)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    tz = stark.preprocess()
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t
+    t = time.perf_counter()
+    out, proof, _ = MM.prove_chain(mimc, stark, x, tz, urandom=det_urandom(b"chip smoke 2^20"))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ok = MM.verify_chain(mimc, stark, x, out, proof, tz.root)
+    verify_s = time.perf_counter() - t
+    path_launches = dict(K.LAUNCHES)
+    assert ok, f"verify rejected the large proof: {stark.last_rejection}"
+    print(f"  launches in the large path (preprocess, prove, verify): {path_launches}")
+    for name in ("mont_mul", "mont_pow", "add_mod", "sub_mod", "ntt", "merkle", "seed_expand", "fri_fold"):
+        assert path_launches[name] > 0, f"{name} was not launched on the large path"
+    for name in LARGE_KERNELS:
+        records[name]["launches"] = path_launches[name]
+    t = time.perf_counter()
+    assert out == mimc.forward(x), "the chain's output differs from the scalar chain"
+    forward_s = time.perf_counter() - t
+    assert not MM.verify_chain(mimc, stark, x, out + field.one(), proof, tz.root), \
+        "verify accepted a false output"
+    print(f"  MiMC {MIMC_STEPS} steps: preprocess {pre_s:.3f} s, first prove {first_s:.3f} s, verify {verify_s:.3f} s, "
+          f"proof {len(proof)} bytes; output equals the scalar chain ({forward_s:.1f} s on the host); "
+          f"a false output is rejected")
+    prove_s, phase_rows = [], []
+    for k in range(3):
+        stark.timer.totals.clear()
+        stark.timer.counts.clear()
+        xs = FieldElement(rng.randrange(P), field)
+        t = time.perf_counter()
+        o, pr, _ = MM.prove_chain(mimc, stark, xs, tz)
+        torch.cuda.synchronize()
+        prove_s.append(time.perf_counter() - t)
+        phase_rows.append(dict(stark.timer.totals))
+        t = time.perf_counter()
+        assert MM.verify_chain(mimc, stark, xs, o, pr, tz.root)
+        verify_s = time.perf_counter() - t
+        total = sum(phase_rows[-1].values())
+        print(f"  steady prove {k}: {prove_s[-1]:.4f} s, verify {verify_s:.4f} s; phases (s): "
+              + ", ".join(f"{p} {phase_rows[-1].get(p, 0.0):.4f}" for p in LARGE_PHASES)
+              + f"; sum {100 * total / prove_s[-1]:.1f}% of the prove")
+    print(f"MiMC {MIMC_STEPS} steps: steady prove seconds (median of 3): {statistics.median(prove_s):.4f} {prove_s} on {smi}")
+    print(f"MiMC {MIMC_STEPS} steps: peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+          f"(max_memory_allocated)")
+    # each of the next three proves a new statement, as a stream of proofs does
+    K.reset_launch_counts()
+    MM.prove_chain(mimc, stark, FieldElement(rng.randrange(P), field), tz)
+    torch.cuda.synchronize()
+    print(f"  kernel launches in one steady prove: {sum(K.LAUNCHES.values())} {dict(K.LAUNCHES)}")
+    xs = FieldElement(rng.randrange(P), field)
+    wall, busy, seen = profile_all(lambda: MM.prove_chain(mimc, stark, xs, tz))
+    if busy is None:
+        print(f"  profile of one steady prove: wall {wall:.4f} s, device time not measured")
+    else:
+        print(f"  profile of one steady prove: wall {wall:.4f} s (under the profiler), device busy "
+              f"{busy:.4f} s = {100 * busy / wall:.2f}% of wall, "
+              f"{sum(c for c, _ in seen.values())} device launches")
+        for key, (cnt, us) in sorted(seen.items(), key=lambda kv: -kv[1][1])[:12]:
+            print(f"  {us / 1e3:9.3f} ms  {cnt:6d} launches  {key[:90]}")
+
+    xs = FieldElement(rng.randrange(P), field)
+    host_profile("one steady prove", lambda: MM.prove_chain(mimc, stark, xs, tz), LARGE_SPANS)
+
+    # the pipelined prover over four statements against four serial proves
+    inputs = [FieldElement(rng.randrange(P), field) for _ in range(4)]
+    t = time.perf_counter()
+    for xs in inputs:
+        MM.prove_chain(mimc, stark, xs, tz)
+    torch.cuda.synchronize()
+    serial_s = (time.perf_counter() - t) / len(inputs)
+    prover = PipelinedMiMCProver(mimc, stark, tz)
+    try:
+        t = time.perf_counter()
+        results = prover.prove_many(inputs)
+        torch.cuda.synchronize()
+        pipe_s = (time.perf_counter() - t) / len(inputs)
+    finally:
+        prover.close()
+    for xs, (o, pr) in zip(inputs, results):
+        assert MM.verify_chain(mimc, stark, xs, o, pr, tz.root), "a pipelined proof did not verify"
+    print(f"MiMC {MIMC_STEPS} steps: pipelined prover: {pipe_s:.4f} s per proof against serial {serial_s:.4f} s "
+          f"over {len(inputs)} statements, every proof verified, on {smi}")
+
+
 def main() -> int:
     import torch
 
@@ -363,6 +704,7 @@ def main() -> int:
     from stark_anatomy_tpu_torch.ops.domain import DOMAINS
     from stark_anatomy_tpu_torch.models.rpsss import FastRPSSS
     from stark_anatomy_tpu_torch.protocols.fast_stark import FastStark
+    from stark_anatomy_tpu_torch.utils.build import host_compiler
     from stark_anatomy_tpu_torch.utils.convert import canonical_np, device_from_ints, ints_from_device
 
     dev = torch.device("cuda", 0)
@@ -380,7 +722,7 @@ def main() -> int:
         for job in [pool.submit(K.load), pool.submit(NB.load)]:
             job.result()
     print(f"build: {time.perf_counter() - tb:.3f} s (one nvcc call per CUDA source, "
-          f"{K.NVCC_FLAGS}; N1 by {NB._compiler()} {NB.CXX_FLAGS}; all at once)")
+          f"{K.NVCC_FLAGS}; N1 by {host_compiler()} {NB.CXX_FLAGS}; all at once)")
     for line in K.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -501,19 +843,7 @@ def main() -> int:
     assert ints_from_device(trace_batch(device_from_ints(vec_in, dev))[-1, 0]) == vec_out
 
     def record(name, ms, plain_ms, bound):
-        return {
-            "name": name,
-            "route": "cuda",
-            "source": "stark_anatomy_tpu_torch/csrc/" + ("merkle.cu" if name == "merkle" else "field.cu"),
-            "replaces": KERNEL_INFO[name][0],
-            "launches": None,
-            "max_abs_err": worst_err[name],
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound[0],
-            "bound_by": bound[1],
-            "library_ms": None,
-        }
+        return kernel_record(name, worst_err[name], ms, plain_ms, bound)
 
     a, b = (x.to(dev) for x in field_inputs(MAIN_SHAPE, 7))
     numel = a.numel() // 8
@@ -640,10 +970,11 @@ def main() -> int:
     assert accepted, f"verify rejected an honest signature: {scheme.stark.last_rejection}"
     assert not scheme.verify(pk, b"forged document", sig), "verify accepted a forged document"
     assert not scheme.verify(pk_other, DOC, sig), "verify accepted another key's pk"
-    # H4 is not on this path (the sign's codewords are under
-    # DEVICE_COMMIT_MIN); phase 3's generic prover reads its launches
+    # H4, H5 and H6 are not on this path (the sign's codewords are under
+    # DEVICE_COMMIT_MIN, its randomizer under bulk_randomizer_threshold);
+    # phase 5's 2^20 path reads their launches
     for name in K.KERNELS:
-        if name != "merkle":
+        if name not in LARGE_KERNELS:
             assert sign_launches[name] > 0, f"{name} was not launched during sign"
             records[name]["launches"] = path_launches[name]
     print(f"signature: {len(sig)} bytes")
@@ -687,7 +1018,7 @@ def main() -> int:
         trace_s.append(time.perf_counter() - ts)
     print(f"rescue trace_batch seconds (median of 3): {statistics.median(trace_s):.4f} {trace_s} on {smi}")
     profile_sign(lambda: scheme.sign(sk, DOC))
-    host_profile_sign(lambda: scheme.sign(sk, DOC))
+    host_profile("one sign", lambda: scheme.sign(sk, DOC), HOST_SPANS)
     phase("2 main path", t2)
 
     # -- phase 3: card against CPU, byte for byte ----------------------------
@@ -731,7 +1062,6 @@ def main() -> int:
               + ", ".join(f"{k} {v:.4f}" for k, v in stark.timer.totals.items()))
     print(f"launches in the card's generic preprocess + prove: {generic_launches}")
     assert generic_launches["merkle"] > 0, "H4 was not launched by the forced device commit"
-    records["merkle"]["launches"] = generic_launches["merkle"]
     (cs, cair, ctz, cproof), (hs, hair, htz, hproof) = generic["card"], generic["cpu"]
     assert ctz.root == htz.root, "the card's zerofier root differs from the CPU's"
     assert cproof == hproof, "the card (H4 trees) and the CPU (host trees) proved different bytes"
@@ -771,6 +1101,12 @@ def main() -> int:
           f"{fmt_us(dev_us)}/commit, bound {bound[0]:.6f} ms ({bound[1]}); N1 with the copy to "
           f"the host {n1_ms:.3f} ms (median of 3; first {1e3 * n1_first_s:.3f} ms) on {smi}")
     phase("4 H4 at 2^22", t4)
+
+    # -- phase 5: the large-trace path ---------------------------------------
+    t5 = time.perf_counter()
+    large_path(dev, smi, records, worst_err, compare)
+    assert worst_mismatch == 0, "a kernel disagrees with its plain version"
+    phase("5 large-trace path", t5)
 
     print(f"total: {time.perf_counter() - t0:.3f} s")
     print(smi)

@@ -9,9 +9,10 @@ queried digests and values are copied to the host, each opening by one
 ``index_select`` and one copy.  Roots, paths and multiproofs are byte
 for byte those of the host MerkleTree over the same codeword.
 
-Not ported: the reference's padded gathers (``_take_padded``, which only
-keep XLA from recompiling) and its padded-buffer trees (``n_leaves``, the
-device FRI's fold+commit, a later slice).
+Not ported: the reference's padded gathers (``_take_padded``) and its
+padded-buffer trees (``n_leaves``, ``_commit_paired_dynamic``), which only
+kept XLA from recompiling: the device FRI (protocols/fri.py) builds each
+round's tree over an exactly sized codeword.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""H4: the blake2s-256 Merkle tree kernel, with its plain version.
+"""H4: the blake2s-256 Merkle tree kernel, and H5: the seed-expansion
+kernel, with their plain versions.
 
 H4 ``merkle_paired`` (csrc/merkle.cu) replaces the JAX package's jnp
 blake2s graphs K11 (stark_anatomy_tpu/commit/device_merkle.py:
@@ -14,6 +15,11 @@ paired leaves (leaf i hashes LE16(v_i) || LE16(v_{i+n/2})), each parent
 level after them, the root in column n - 2 and a zero pad in column
 n - 1.  On a CPU tensor it runs the plain version below; on a CUDA tensor
 it launches H4 or raises.
+
+H5 ``seed_expand`` (csrc/merkle.cu, sharing H4's compression) replaces the
+jnp graph stark_anatomy_tpu/utils/rand.py:_expand_impl: ``count`` field
+elements in Montgomery form from 8 seed words, by blake2s in counter mode
+with rejection sampling.  Its launches count under "seed_expand".
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ from typing import List, Tuple
 import torch
 
 from ..field import kernels as K
-from ..field.limbs import NLIMBS
+from ..field.limbs import NLIMBS, R
+from ..field.scalar import P
 
 TREE_LEVELS = 8          # levels one H4 pass reduces: log2 of its 256-thread block
 MAX_BATCH = 65535        # codewords per launch: the grid's y axis
@@ -162,3 +169,76 @@ def merkle_paired_plain(canon: torch.Tensor) -> torch.Tensor:
     levels.append(torch.zeros_like(levels[-1][..., :1]))                # the pad column
     flat = torch.cat(levels, dim=-1)
     return torch.where(flat >= 1 << 31, flat - (1 << 32), flat).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# H5: seed expansion
+# ---------------------------------------------------------------------------
+
+_P_WORDS = tuple((P >> (32 * k)) & MASK32 for k in range(4))
+
+
+def seed_expand(seed_words: torch.Tensor, count: int) -> torch.Tensor:
+    """H5: ``count`` field elements (8, count) in Montgomery form from the
+    8 seed words ``seed_words`` (an int32 tensor of the 32-byte seed read
+    little-endian), on the seed's device.  With h = ceil(count / 2),
+    element i (element h + i) is words 0-3 (4-7) of blake2s(seed || i ||
+    r) for the first round tag r at which that candidate is below p."""
+    if seed_words.dtype != torch.int32 or tuple(seed_words.shape) != (8,):
+        raise ValueError(f"seed_expand: the seed must be 8 int32 words; "
+                         f"got {tuple(seed_words.shape)} {seed_words.dtype}")
+    if not 1 <= count <= 1 << 32:
+        raise ValueError(f"seed_expand: the count must lie in [1, 2^32], got {count}")
+    if seed_words.device.type == "cpu":
+        return seed_expand_plain(seed_words, count)
+    K._check_cuda("seed_expand", seed_words)
+    seed_words = seed_words.contiguous()
+    out = torch.empty((NLIMBS, count), dtype=torch.int32, device=seed_words.device)
+    err = K._entry("seed_expand")(out.data_ptr(), seed_words.data_ptr(), count,
+                                  *K._stream(seed_words))
+    K._finish("seed_expand", err)
+    return out
+
+
+def expand_candidates_plain(seed_words: torch.Tensor, count: int, round_tag: int) -> torch.Tensor:
+    """The candidates of round ``round_tag``: (4, count) int64 words of the
+    128-bit values, least significant first."""
+    half = (count + 1) // 2
+    key = [int(w) & MASK32 for w in seed_words.tolist()]
+    ctr = torch.arange(half, dtype=torch.int64, device=seed_words.device)
+    d = torch.stack(compress_plain(key + [ctr, round_tag] + [0] * 6, 40))    # (8, half)
+    return torch.cat([d[:4], d[4:]], dim=-1)[:, :count]
+
+
+def below_p_plain(words: torch.Tensor) -> torch.Tensor:
+    """(4, n) int64 words -> (n,) bool, value < p (p's words are 1, 0, 0,
+    0xCB800000)."""
+    top = words[3]
+    low_zero = (words[0] | words[1] | words[2]) == 0
+    return (top < _P_WORDS[3]) | ((top == _P_WORDS[3]) & low_zero)
+
+
+def seed_expand_plain(seed_words: torch.Tensor, count: int, rounds: list = None) -> torch.Tensor:
+    """Plain version of H5, the reference's rejection loop: every element
+    draws from round 0, then each element still >= p from the next round
+    tag, until none is left.  With ``rounds`` (a list), appends the number
+    of compressions H5's threads run, one per counter and round until
+    both its elements are accepted (the work the bound counts)."""
+    v = expand_candidates_plain(seed_words, count, 0)
+    ok = below_p_plain(v)
+    done = torch.zeros_like(ok, dtype=torch.int64)                # round of acceptance
+    r = 0
+    while not bool(ok.all()):
+        r += 1
+        c = expand_candidates_plain(seed_words, count, r)
+        bad = ~ok
+        v = torch.where(bad, c, v)
+        done = torch.where(bad, r, done)
+        ok = below_p_plain(v)
+    if rounds is not None:
+        pad = torch.nn.functional.pad(done, (0, count % 2))        # the last counter's lone element
+        rounds.append(int((pad.view(2, -1).amax(0) + 1).sum()))
+    limbs = torch.stack([(v[k // 2] >> (16 * (k % 2))) & 0xFFFF for k in range(NLIMBS)])
+    r2 = torch.tensor([(R * R % P >> (16 * k)) & 0xFFFF for k in range(NLIMBS)],
+                      dtype=torch.int32, device=v.device).view(NLIMBS, 1)
+    return K.mont_mul_plain(limbs.to(torch.int32), r2)

@@ -15,13 +15,12 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 from hashlib import blake2s
 from typing import Sequence
 
 import numpy as np
 
-from ..utils.build import Job, build_all
+from ..utils.build import Job, build_all, host_compiler
 from .hashing import DIGEST_LEN
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -31,19 +30,10 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall")
 _lib = None
 
 
-def _compiler() -> str:
-    for name in (os.environ.get("CXX"), "c++", "g++"):
-        found = name and shutil.which(name)
-        if found:
-            return found
-    raise RuntimeError("no host C++ compiler (c++ or g++) found: N1 is built from "
-                       "csrc/blake2s_host.cpp")
-
-
 def build() -> str:
     """Compile csrc/blake2s_host.cpp unless it was built already; returns
     the path of the shared library."""
-    paths, _ = build_all([Job("stark_blake2s", _compiler(), CXX_FLAGS, SOURCE)])
+    paths, _ = build_all([Job("stark_blake2s", host_compiler(), CXX_FLAGS, SOURCE)])
     return paths["stark_blake2s"]
 
 

@@ -1,4 +1,6 @@
 // H4 stark_merkle: the blake2s-256 Merkle tree of a codeword, on Hopper.
+// H5 stark_seed_expand: field elements from a 32-byte seed by blake2s in
+// counter mode, with rejection sampling, in Montgomery form.
 //
 // Replaces the JAX package's jnp blake2s graphs K11,
 // stark_anatomy_tpu/commit/device_merkle.py: _compress_words (one
@@ -41,9 +43,29 @@
 // element and 32 bytes written per column.  So the tree levels stay in
 // shared memory (each digest is written once and never read back from
 // device memory within a pass) and every thread of a live level hashes.
+//
+// H5 replaces the jnp graph stark_anatomy_tpu/utils/rand.py:_expand_impl
+// (seed_expand_mont, bulk_random_mont), bit for bit.  Digest i is the
+// blake2s-256 of the 40-byte message (the 8 seed words, counter i, round
+// tag r); with h = ceil(count / 2), its words 0-3 and 4-7 are the
+// candidates (little-endian 128-bit) for elements i and h + i (the
+// reference's reshape of the (4, 2, h) word stack; its comment says 2i
+// and 2i + 1, its code gives i and h + i).  A candidate >= p is redrawn with the next
+// round tag, and element j keeps the candidate of the first round in
+// which it is below p, as the reference's while_loop does.  So one thread
+// runs counter i: it hashes round after round until both its elements
+// are accepted (P[candidate >= p] is about 0.205, so mostly one or two
+// compressions), converts them to Montgomery form (a product with
+// R^2 mod p) and writes them, all in one launch.  It shares compress()
+// with H4.  What bounds it: the compressions' instructions, about 960
+// each; the 32 bytes written per element are a few percent of that time.
+// A warp runs until its slowest thread is done, so a warp of 64 elements
+// takes about 3-4 compressions where the average element needs 1.3.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "field_arith.cuh"
 
 namespace {
 
@@ -170,6 +192,65 @@ merkle_kernel(uint32_t* __restrict__ flat, const uint32_t* __restrict__ canon,
   }
 }
 
+constexpr int kExpandThreads = 256;
+
+// R^2 mod p = 2^256 mod p in 32-bit words: the product with it puts a
+// canonical value in Montgomery form.
+__device__ __forceinline__ uint32_t r2_word(int k) {
+  return k == 0 ? 0x0E778236u : (k == 1 ? 0x5BD53A7Fu : (k == 2 ? 0x1A6AEDC2u : 0xAAF4AD9Au));
+}
+
+// w (four words, least significant first) < p = kP3 * 2^96 + 1.
+__device__ __forceinline__ bool below_p(const uint32_t w[4]) {
+  return w[3] < kP3 || (w[3] == kP3 && (w[0] | w[1] | w[2]) == 0u);
+}
+
+// out: (8, count) Montgomery elements; seed: the 8 seed words.
+__global__ void __launch_bounds__(kExpandThreads)
+seed_expand_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ seed,
+                   int64_t count) {
+  const int64_t half = (count + 1) / 2;
+  uint32_t key[8];
+#pragma unroll
+  for (int k = 0; k < 8; k++) key[k] = static_cast<uint32_t>(seed[k]);
+  uint32_t r2[4];
+#pragma unroll
+  for (int k = 0; k < 4; k++) r2[k] = r2_word(k);
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < half;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    uint32_t m[16];
+#pragma unroll
+    for (int k = 0; k < 8; k++) m[k] = key[k];
+    m[8] = static_cast<uint32_t>(i);
+#pragma unroll
+    for (int k = 10; k < 16; k++) m[k] = 0;
+    const bool pair = half + i < count;
+    bool need0 = true, need1 = pair;
+    uint32_t v0[4] = {0, 0, 0, 0}, v1[4] = {0, 0, 0, 0};
+    for (uint32_t r = 0; need0 || need1; r++) {
+      m[9] = r;
+      uint32_t d[8];
+      compress(m, 40, d);
+      if (need0 && below_p(d)) {
+#pragma unroll
+        for (int k = 0; k < 4; k++) v0[k] = d[k];
+        need0 = false;
+      }
+      if (need1 && below_p(d + 4)) {
+#pragma unroll
+        for (int k = 0; k < 4; k++) v1[k] = d[4 + k];
+        need1 = false;
+      }
+    }
+    mont_mul_words(v0, r2, v0);
+    store4(out, 0, i, count, v0);
+    if (pair) {
+      mont_mul_words(v1, r2, v1);
+      store4(out, 0, half + i, count, v1);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -195,6 +276,21 @@ int stark_merkle(void* flat, const void* canon, int64_t batch, int64_t n,
   merkle_kernel<<<grid, kTreeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(flat), static_cast<const uint32_t*>(canon), n,
       width, in_off, levels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H5: out contiguous (8, count) int32, seed 8 int32 words, both on the
+// card; 1 <= count <= 2^32 (the counters are 32-bit, as in the reference).
+int stark_seed_expand(void* out, const void* seed, int64_t count, void* stream,
+                      int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (count < 1 || count > (int64_t(1) << 32)) return static_cast<int>(cudaErrorInvalidValue);
+  int64_t blocks = ((count + 1) / 2 + kExpandThreads - 1) / kExpandThreads;
+  if (blocks > (1 << 30)) blocks = 1 << 30;   // the grid-stride loop covers the rest
+  seed_expand_kernel<<<static_cast<unsigned>(blocks), kExpandThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(out), static_cast<const int32_t*>(seed), count);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,17 +9,21 @@ field/limb_arith.py:add_mod_rows and sub_mod_rows.  H2
 ``rescue_permutation`` runs the whole Rescue-Prime permutation in one
 launch (stark_anatomy_tpu/models/rescue_prime.py:_permutation_scan), and
 H3 ``ntt`` a whole NTT of up to 8192 points in one launch
-(stark_anatomy_tpu/ops/ntt.py:ntt_core).  The sources are csrc/field.cu;
-its header says what bounds each kernel and how the design answers it.
+(stark_anatomy_tpu/ops/ntt.py:ntt_core).  H6 ``fri_fold`` runs one round of
+the FRI fold (stark_anatomy_tpu/protocols/fri.py:_fold_kernel and
+_square_half) and writes the folded codeword's canonical form beside it.
+The sources are csrc/field.cu and the word arithmetic it shares with
+csrc/merkle.cu, csrc/field_arith.cuh; the header of field.cu says what
+bounds each kernel and how the design answers it.
 
 Each wrapper takes int32 limb tensors (..., 8, n) in Montgomery form:
 * on a CPU tensor it runs the kernel's plain PyTorch version below;
 * on a CUDA tensor it launches the kernel on the current stream, or
   raises: there is no fallback.
 
-This module also builds and loads H4 ``merkle`` (csrc/merkle.cu), the
-blake2s Merkle tree kernel, whose wrapper and plain version are in
-commit/kernels.py.  Each CUDA source is built at first use by one ``nvcc``
+This module also builds and loads H4 ``merkle`` and H5 ``seed_expand``
+(csrc/merkle.cu), the blake2s Merkle tree kernel and the seed-expansion
+kernel, whose wrappers and plain versions are in commit/kernels.py.  Each CUDA source is built at first use by one ``nvcc``
 call into ``_build/`` (git-ignored), the calls side by side, cached by a
 hash of the source and flags (utils/build.py), and loaded with ctypes.
 ``LAUNCHES`` counts the launches of each kernel.
@@ -45,13 +49,16 @@ SOURCES = {                       # library stem -> CUDA source
     "stark_field": os.path.join(_PKG, "csrc", "field.cu"),
     "stark_merkle": os.path.join(_PKG, "csrc", "merkle.cu"),
 }
+HEADERS = (os.path.join(_PKG, "csrc", "field_arith.cuh"),)    # included by both
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 BINARY = ("mont_mul", "add_mod", "sub_mod")
-KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "rescue_perm", "ntt", "merkle")
-LIBRARY = {name: "stark_merkle" if name == "merkle" else "stark_field" for name in KERNELS}
+KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "rescue_perm", "ntt", "merkle",
+           "seed_expand", "fri_fold")
+LIBRARY = {name: "stark_merkle" if name in ("merkle", "seed_expand") else "stark_field"
+           for name in KERNELS}
 RESCUE_M = 2            # Rescue-Prime state width
 RESCUE_ROUNDS = 27
 # The Rescue S-box x^(1/3) is x^ALPHA_INV, ALPHA_INV = (2p - 1)/3 =
@@ -104,7 +111,8 @@ def build() -> Dict[str, str]:
     """Compile each CUDA source that was not built already, one ``nvcc``
     call per source, all at once; returns {library stem: path}."""
     global build_log
-    paths, log = build_all([Job(stem, _nvcc(), NVCC_FLAGS, src) for stem, src in SOURCES.items()])
+    paths, log = build_all([Job(stem, _nvcc(), NVCC_FLAGS, src, HEADERS)
+                            for stem, src in SOURCES.items()])
     build_log = log or build_log
     return paths
 
@@ -122,6 +130,9 @@ _ARGTYPES = {
     + [ctypes.c_void_p] * 2 + [ctypes.c_int],
     "merkle": [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 4
     + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
+    "seed_expand": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int],
+    "fri_fold": [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_uint64] * 4
+    + [ctypes.c_void_p, ctypes.c_int],
 }
 
 
@@ -394,6 +405,51 @@ def ntt(values: torch.Tensor, powers: torch.Tensor, n_inv: Optional[torch.Tensor
     return out
 
 
+def mont_words(value: int) -> Tuple[int, int]:
+    """(low, high) 64-bit halves of the Montgomery form of a field element."""
+    m = value % P * R % P
+    return m & ((1 << 64) - 1), m >> 64
+
+
+TWO_INV = pow(2, P - 2, P)
+
+
+def fold_layout(codeword: torch.Tensor, u: torch.Tensor) -> int:
+    """h of a fold H6 takes: a contiguous int32 (8, 2h) codeword and a
+    contiguous int32 (8, h) table, h >= 2.  Raises ValueError otherwise."""
+    for name, x in (("codeword", codeword), ("u", u)):
+        if x.dtype != torch.int32 or x.dim() != 2 or x.shape[0] != NLIMBS or not x.is_contiguous():
+            raise ValueError(f"fri_fold: {name} must be a contiguous int32 ({NLIMBS}, n) tensor; "
+                             f"got {tuple(x.shape)} {x.dtype}")
+    h = u.shape[-1]
+    if h < 2 or codeword.shape[-1] != 2 * h:
+        raise ValueError(f"fri_fold: the codeword must hold 2h elements for a table of h >= 2; "
+                         f"got {codeword.shape[-1]} and {h}")
+    return h
+
+
+def fri_fold(codeword: torch.Tensor, u: torch.Tensor, alpha: int):
+    """H6: one FRI fold round.  ``codeword`` (8, 2h) and ``u`` (8, h), the
+    inverse-domain table u_i = 1/(offset omega^i), in Montgomery form;
+    ``alpha`` the round's challenge.  Returns (folded, canon, u2): the
+    folded codeword c'_i = 2^-1 ((1 + alpha u_i) c_i + (1 - alpha u_i)
+    c_{i+h}) in Montgomery form (8, h) and in canonical form (8, h), and
+    the next round's table u2_i = u_i^2, i < h/2."""
+    h = fold_layout(codeword, u)
+    if codeword.device.type == "cpu" and u.device.type == "cpu":
+        return fri_fold_plain(codeword, u, alpha)
+    _check_cuda("fri_fold", codeword, u)
+    folded = torch.empty_like(u)
+    canon = torch.empty_like(u)
+    u2 = torch.empty((NLIMBS, h // 2), dtype=torch.int32, device=u.device)
+    err = _entry("fri_fold")(
+        folded.data_ptr(), canon.data_ptr(), u2.data_ptr(), codeword.data_ptr(), u.data_ptr(),
+        h, *mont_words(alpha), *mont_words(TWO_INV), *_stream(u),
+    )
+    _finish("fri_fold", err)
+    return folded, canon, u2
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (any device, any broadcastable shapes)
 # ---------------------------------------------------------------------------
@@ -546,8 +602,24 @@ def ntt_plain(values: torch.Tensor, powers: torch.Tensor, n_inv: Optional[torch.
     return x
 
 
+def fri_fold_plain(codeword: torch.Tensor, u: torch.Tensor, alpha: int):
+    """Plain version of H6: the JAX package's _fold_kernel, _square_half
+    and the canonical form (a product with 1), over the plain field
+    functions."""
+    h = fold_layout(codeword, u)
+    a, b = codeword[:, :h], codeword[:, h:]
+    alpha_m = _limb_col(alpha % P * R % P, u.device).to(torch.int32)
+    two_inv = _limb_col(TWO_INV * R % P, u.device).to(torch.int32)
+    d = mont_mul_plain(mont_mul_plain(alpha_m, u), sub_mod_plain(a, b))
+    folded = mont_mul_plain(two_inv, add_mod_plain(add_mod_plain(a, b), d))
+    canon = mont_mul_plain(folded, _limb_col(1, u.device).to(torch.int32))
+    u2 = mont_mul_plain(u[:, : h // 2], u[:, : h // 2])
+    return folded, canon, u2
+
+
 PLAIN = {
     "mont_mul": mont_mul_plain, "mont_pow": mont_pow_plain,
     "add_mod": add_mod_plain, "sub_mod": sub_mod_plain,
     "rescue_perm": rescue_permutation_plain, "ntt": ntt_plain,
+    "fri_fold": fri_fold_plain,
 }

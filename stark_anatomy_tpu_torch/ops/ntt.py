@@ -1,32 +1,59 @@
-"""The NTT: one radix-2 transform, one launch of H3 on the card.
+"""The NTT: one launch of H3 up to NTT_MAX points, a four-step transform
+over H3 above.  The port of stark_anatomy_tpu/ops/ntt.py and
+ops/stage_ntt.py.
 
-The port of stark_anatomy_tpu/ops/ntt.py and ops/stage_ntt.py.  The JAX
-package keeps two lowerings (a scan over radix-2 stages and a staged
-four-step transform) that are bit-exact with each other
-(ops/stage_ntt.py:24-25), so only the output values matter: here one
-iterative radix-2 Cooley-Tukey transform serves every size, with the
-optional pre-scale (a coset table, for an LDE), post-scale (an inverse
-coset table, for interpolation) and 1/n folded into the inverse.
-
-:func:`ntt` hands the domain's tables to the H3 wrapper
+The JAX package keeps two lowerings (a scan over radix-2 stages and a
+staged four-step transform) that are bit-exact with each other
+(ops/stage_ntt.py:24-25), so only the output values matter.  Here
+:func:`ntt` hands a transform of n <= NTT_MAX points to the H3 wrapper
 (field/kernels.py:ntt): on a CUDA tensor one launch runs the whole
-transform in one thread block per row (n <= 8192), on a CPU tensor its
-plain version ``kernels.ntt_plain`` runs the stages in PyTorch.
+transform in one thread block per row, on a CPU tensor its plain version
+``kernels.ntt_plain`` runs the stages in PyTorch.  The optional pre-scale
+(a coset table, for an LDE), post-scale (an inverse coset table, for
+interpolation) and 1/n of the inverse ride in that launch.
+
+Above NTT_MAX (H3 holds a whole transform in one block's shared memory)
+``_four_step`` splits n = n1 * n2, input index j = j1 + n1 j2 and output
+index k = k2 + n2 k1:
+
+1. a transpose to rows j1 of length n2;
+2. n1 transforms of length n2 (H3, or four-step again when the threshold
+   is lowered), with the twiddles omega_n^(j1 k2) as their post-scale;
+3. a transpose to rows k2 of length n1;
+4. n2 transforms of length n1;
+5. a transpose back to natural order.
+
+An inverse is the same with omega^-1, and the inner inverses' 1/n1 and
+1/n2 make 1/n.  The pre- and post-scale are one H0 launch each around
+it.  The twiddle table (8, n) is cached per (n, direction, device): 512
+MiB at n = 2^24.  The transposes are PyTorch copies (a fused multi-pass
+kernel is later work).
+
+``prefix_zerofier_evals`` evaluates a prefix zerofier on a geometric
+domain by rolls and products (the JAX package's rolling kernel).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from ..field import kernels as K
 from ..field import ops as F
-from .domain import DOMAINS, coset_table
+from ..field.limbs import NLIMBS
+from ..field.scalar import P
+from .domain import DOMAINS, coset_table, mont_const
 
 # crossover below which zerofiers are built with host big-int
 # accumulation (stark_anatomy_tpu/ops/ntt.py:HOST_ZEROFIER_MAX)
 HOST_ZEROFIER_MAX = 2048
+
+# transforms above this many points run four-step over H3; the tests lower
+# it to run the four-step path at small sizes
+NTT_MAX = K.NTT_MAX
+
+_TWIDDLES: Dict[tuple, torch.Tensor] = {}
 
 
 def ntt(
@@ -43,12 +70,52 @@ def ntt(
     """
     n = values.shape[-1]
     assert n >= 1 and n & (n - 1) == 0, "NTT length must be a power of two"
+    if values.device.type != "cpu":
+        values = values.to(torch.int32).contiguous()
+    if n > NTT_MAX:
+        return _four_step(values, inverse, scale_pre, scale_post)
     dom = DOMAINS.get(n, values.device)
     powers = dom["inv_powers"] if inverse else dom["fwd_powers"]
     n_inv = dom["n_inv"] if inverse and n > 1 else None
-    if values.device.type != "cpu":
-        values = values.to(torch.int32).contiguous()
     return K.ntt(values, powers, n_inv, scale_pre, scale_post)
+
+
+def _twiddles(n: int, n1: int, inverse: bool, device) -> torch.Tensor:
+    """(n1, NLIMBS, n2) table omega_n^(+-j1 k2), gathered from the forward
+    power table (omega^-e = omega^(n - e)); cached per (n, n1, direction,
+    device)."""
+    key = (n, n1, inverse, torch.device(device))
+    if key not in _TWIDDLES:
+        n2 = n // n1
+        e = torch.arange(n1, device=device).view(n1, 1) * torch.arange(n2, device=device)
+        if inverse:
+            e = (n - e) % n
+        tab = DOMAINS.get(n, device)["fwd_powers"].index_select(-1, e.flatten())
+        _TWIDDLES[key] = tab.view(NLIMBS, n1, n2).transpose(0, 1).contiguous()
+    return _TWIDDLES[key]
+
+
+def _four_step(values, inverse, scale_pre, scale_post) -> torch.Tensor:
+    """The transform of ``ntt`` for n > NTT_MAX as n2-point and n1-point
+    row transforms (module docstring); the leading axes one at a time."""
+    n = values.shape[-1]
+    lead = values.shape[:-2]
+    if scale_pre is not None:
+        values = F.mont_mul(values, scale_pre)
+    rows = values.reshape(-1, NLIMBS, n)
+    n1 = 1 << ((n.bit_length() - 1) // 2)          # n1 <= n2 = n / n1
+    n2 = n // n1
+    tw = _twiddles(n, n1, inverse, values.device)
+    outs = []
+    for x in rows:
+        y = x.view(NLIMBS, n2, n1).permute(2, 0, 1).contiguous()       # [j1][l][j2]
+        y = ntt(y, inverse, scale_post=tw)                               # [j1][l][k2]
+        z = ntt(y.permute(2, 1, 0).contiguous(), inverse)                # [k2][l][k1]
+        outs.append(z.permute(1, 2, 0).reshape(NLIMBS, n))               # [l][k1 n2 + k2]
+    out = torch.stack(outs).view(lead + (NLIMBS, n))
+    if scale_post is not None:
+        out = F.mont_mul(out, scale_post)
+    return out
 
 
 def intt(values: torch.Tensor) -> torch.Tensor:
@@ -86,4 +153,39 @@ def evaluate_domain_horner(coeffs: torch.Tensor, points: torch.Tensor) -> torch.
     acc = torch.zeros_like(points)
     for k in range(cols.shape[0] - 1, -1, -1):
         acc = F.add(F.mont_mul(acc, points), cols[k].unsqueeze(-1))
+    return acc
+
+
+def prefix_zerofier_evals(y_tab: torch.Tensor, root: int, unit: int, count: int) -> torch.Tensor:
+    """Evaluations of Z(x) = prod_{i<count}(x - root^i) at every point of
+    ``y_tab`` (..., NLIMBS, D), a geometric domain in natural order,
+    y_j = offset * omega_D^j with root = omega_D^unit, without forming Z's
+    coefficients (the port of stark_anatomy_tpu/ops/ntt.py:
+    prefix_zerofier_evals).
+
+    Multiplying a point by root^-s rolls the table by unit*s places, so
+    with F_k(y) = prod_{i<2^k}(y - root^i) the doubling
+
+        F_{k+1}(y) = F_k(y) * root^(4^k) * F_k(y * root^(-2^k)),  F_0 = y - 1
+
+    is one product with a rolled copy, and ``count`` is assembled from its
+    binary digits: for each set bit k the running product takes
+    F_k(y * root^(-s)) * root^(s 2^k), s the digits of count above k.
+    About 2 log2(count) rolls and 4 log2(count) products over the domain.
+    """
+    assert count >= 1
+    D = y_tab.shape[-1]
+    assert count * unit <= D, "zerofier roots must fit in the domain"
+    dev = y_tab.device
+    fk = F.sub(y_tab, F.mont_one(1, (), dev))
+    acc = None
+    for k in range(count.bit_length()):
+        if (count >> k) & 1:
+            s_above = count & ~((1 << (k + 1)) - 1)
+            shift = (unit * s_above) % D
+            term = F.mont_mul(torch.roll(fk, shift, dims=-1), mont_const(pow(root, s_above << k, P), dev))
+            acc = term if acc is None else F.mont_mul(acc, term)
+        if k + 1 < count.bit_length():
+            c_dbl = mont_const(pow(root, 1 << (2 * k), P), dev)
+            fk = F.mont_mul(fk, F.mont_mul(torch.roll(fk, (unit << k) % D, dims=-1), c_dbl))
     return acc

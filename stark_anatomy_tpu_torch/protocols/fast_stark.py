@@ -1,4 +1,4 @@
-"""FastStark: the device-accelerated STARK prover, small-trace branches.
+"""FastStark: the device-accelerated STARK prover.
 
 The port of stark_anatomy_tpu/protocols/fast_stark.py.  Same transcript
 structure as the JAX package (boundary-quotient roots, randomizer root,
@@ -13,14 +13,22 @@ preprocessed transition-zerofier section), hence the same proof bytes:
   quotients, degree-adjustment shifts and the weighted combination.
 
 All field arithmetic goes through field/ops.py, so on the card it runs in
-the hand-written kernels.  Ported here: the host-zerofier and n <= 2048
-branches, ``prove`` (with FRI on the host; the generic AIR compiler
-``compile_air`` where no model evaluator is given), the commitments (on
-the host by N1, or on the card by H4 when commit/device_merkle.py:
-use_device_commit says so), ``verify`` with the batched device check, and
-the per-phase ``timer``.  The large-trace branches (rolling zerofier,
-blocked-coset LDE, bulk device randomness) wait for later slices and
-raise NotImplementedError.
+the hand-written kernels.  Both branches of the tables are ported: host
+coefficients for traces up to HOST_ZEROFIER_MAX rows, and for longer ones
+the rolling zerofier (ops/ntt.py:prefix_zerofier_evals) with no
+coefficient form at all.  ``prove`` takes host rows or device trace
+columns (``trace_columns``, models/mimc.py), draws the randomizer
+polynomial per element on the host or, above
+``bulk_randomizer_threshold`` coefficients, expands it on the card from
+one seed (utils/rand.py, H5), commits on the host by N1 or on the card by
+H4 (commit/device_merkle.py:use_device_commit), and runs FRI on the card
+(protocols/fri.py:Fri.prove, H6 and H4) where the device commit is taken,
+else on the host; the generic AIR compiler ``compile_air`` serves where no
+model evaluator is given.  ``verify`` has the batched device check, and
+``timer`` the per-phase seconds.  The LDE is one N-point coset transform
+(ops/ntt.py, four-step above NTT_MAX points): the JAX package's
+blocked-coset LDE computes the same values as E transforms of M points,
+which only spared XLA compiles.
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ from ..poly.host_ntt import host_zerofier
 from ..poly.multivariate import MPolynomial
 from ..transcript.proof_stream import ProofStream
 from ..utils.convert import canonical_np, device_from_ints, ints_from_device
-from ..utils.profiling import PhaseTimer
+from ..utils.profiling import PhaseTimer, device_sync
+from ..utils.rand import bulk_random_mont
 from .stark import Boundary, StarkParams
 
 
@@ -70,8 +79,11 @@ class TransitionZerofier:
 
 
 class FastStark(StarkParams):
-    # above this many randomizer coefficients the JAX package switches to
-    # bulk device sampling (utils/rand.py), which is not ported yet
+    # randomizer-polynomial sampling crossover: above this many coefficients
+    # prove() switches from per-element host sampling to one seed expanded
+    # on the device (utils/rand.py).  The switch changes the randomness
+    # source, so proof bytes differ across it for a fixed urandom stream;
+    # tests lower it to cover the bulk branch (the JAX package's knob)
     bulk_randomizer_threshold: int = 4096
 
     def __init__(self, *args, device=None, **kwargs):
@@ -91,18 +103,22 @@ class FastStark(StarkParams):
     # ------------------------------------------------------------------
     def preprocess(self) -> TransitionZerofier:
         """Commit to the transition zerofier Z(x) = prod_{i<T-1}(x - omicron^i):
-        host coefficients, one coset LDE, a paired-leaf commitment and the
-        inverse codeword."""
+        its FRI-domain codeword (small traces: host coefficients and one
+        coset LDE; large ones: the rolling evaluation on the domain, with
+        no coefficients), a paired-leaf commitment and the inverse
+        codeword.  Both branches give the same values."""
         count = self.original_trace_length - 1
-        if count > NTT.HOST_ZEROFIER_MAX:
-            raise NotImplementedError(
-                "large-trace transition zerofier (stark_anatomy_tpu/ops/ntt.py:"
-                "prefix_zerofier_evals) is not ported yet"
+        if count <= NTT.HOST_ZEROFIER_MAX:
+            pts = [e.value for e in self.omicron_powers(count)]
+            coeffs = device_from_ints(host_zerofier(pts), self.device)
+            codeword = NTT.coset_evaluate(coeffs, self.generator.value, self.fri_domain_length)
+        else:
+            codeword = NTT.prefix_zerofier_evals(
+                self._x_lde(), self.omicron.value, self.expansion_factor, count
             )
-        pts = [e.value for e in self.omicron_powers(count)]
-        coeffs = device_from_ints(host_zerofier(pts), self.device)
-        codeword = NTT.coset_evaluate(coeffs, self.generator.value, self.fri_domain_length)
         rows, tree = self._commit_rows(codeword)
+        # the codeword itself is not kept: the prover divides by the inverse
+        # and opens through rows and tree (512 MiB less at N = 2^24)
         return TransitionZerofier(None, rows, F.batch_inv(codeword), tree)
 
     def _x_lde(self) -> torch.Tensor:
@@ -126,28 +142,43 @@ class FastStark(StarkParams):
         M = self.omicron_domain_length
         N = self.fri_domain_length
         g = self.generator.value
+        w = self.omicron.value
         E = self.expansion_factor
         dev = self.device
-        if n > NTT.HOST_ZEROFIER_MAX:
-            raise NotImplementedError(
-                "large-trace interpolation tables (stark_anatomy_tpu/protocols/"
-                "fast_stark.py:_interp_tables, n > 2048) are not ported yet"
-            )
         x_lde = self._x_lde()
 
-        # Z_n from host coefficients; Z_n' via the coefficient derivative
-        # (k+1) * z_{k+1} evaluated with one length-M NTT
-        pts = [e.value for e in self.omicron_powers(n)]
-        zn = device_from_ints(host_zerofier(pts), dev)           # (L, n+1)
-        kplus1 = np.arange(1, zn.shape[-1], dtype=np.int64)
-        k_limbs = np.zeros((NLIMBS, len(kplus1)), dtype=np.int32)
-        k_limbs[0] = kplus1 & 0xFFFF
-        k_limbs[1] = kplus1 >> 16
-        k_mont = F.to_mont(torch.from_numpy(k_limbs).to(dev))
-        dz = F.mont_mul(zn[..., 1:], k_mont)                      # (L, n)
-        dz_evals = NTT.ntt(NTT._pad_coeffs(dz, M))                # (L, M)
-        inv_dz = F.batch_inv(dz_evals[..., :n])                   # (L, n)
-        zn_fri = NTT.coset_evaluate(zn, g, N)                     # (L, N)
+        if n <= NTT.HOST_ZEROFIER_MAX:
+            # Z_n from host coefficients; Z_n' via the coefficient derivative
+            # (k+1) * z_{k+1} evaluated with one length-M NTT
+            pts = [e.value for e in self.omicron_powers(n)]
+            zn = device_from_ints(host_zerofier(pts), dev)       # (L, n+1)
+            kplus1 = np.arange(1, zn.shape[-1], dtype=np.int64)
+            k_limbs = np.zeros((NLIMBS, len(kplus1)), dtype=np.int32)
+            k_limbs[0] = kplus1 & 0xFFFF
+            k_limbs[1] = kplus1 >> 16
+            k_mont = F.to_mont(torch.from_numpy(k_limbs).to(dev))
+            dz = F.mont_mul(zn[..., 1:], k_mont)                  # (L, n)
+            dz_evals = NTT.ntt(NTT._pad_coeffs(dz, M))            # (L, M)
+            inv_dz = F.batch_inv(dz_evals[..., :n])               # (L, n)
+            zn_fri = NTT.coset_evaluate(zn, g, N)                 # (L, N)
+        else:
+            # no coefficient form of Z_n: its FRI-domain codeword by the
+            # rolling evaluation, and 1/Z_n'(w^i) from the suffix zerofier
+            # S = prod_{j>=n}(x - w^j): Z_n * S = x^M - 1, so at the prefix
+            # roots 1/Z_n'(w^i) = S(w^i) * w^i / M
+            zn_fri = NTT.prefix_zerofier_evals(x_lde, w, E, n)   # (L, N)
+            m_tab = DOMAINS.get(M, dev)["fwd_powers"]             # w^i
+            if M == n:
+                # Z_n = x^M - 1, so 1/Z_n'(w^i) = w^i / M
+                inv_dz = F.mont_mul(m_tab, mont_const(pow(M, P - 2, P), dev))
+            else:
+                suffix = NTT.prefix_zerofier_evals(m_tab, w, 1, M - n)
+                # S(w^i) = w^(n(M-n)) * S0(w^(i-n)), and for i < n the
+                # wrapped index i - n + M is among the last n entries of S0
+                const = pow(w, n * (M - n), P) * pow(M, P - 2, P) % P
+                inv_dz = F.mont_mul(
+                    F.mont_mul(suffix[..., M - n:], m_tab[..., :n]), mont_const(const, dev)
+                )                                                 # (L, n)
 
         # 1 / ((g*omega_N^j)^M - 1) has period E: E host inversions, tiled
         zeta = pow(self.omega.value, M, P)
@@ -219,17 +250,19 @@ class FastStark(StarkParams):
     def _x_lde_pow(self, e: int) -> torch.Tensor:
         """Codeword of x^e on the FRI coset, closed form:
         (g*omega^j)^e = g^e * omega^(j*e mod N), one gather from the domain
-        power table."""
+        power table; cached per exponent (an entry is 512 MiB at N = 2^24)."""
         e = int(e)
-        if e not in self._xpow_cache:
-            N = self.fri_domain_length
-            tab = DOMAINS.get(N, self.device)["fwd_powers"]
-            idx = (torch.arange(N, device=self.device) * (e % N)) & (N - 1)
-            self._xpow_cache[e] = F.mont_mul(
-                tab.index_select(-1, idx),
-                mont_const(pow(self.generator.value, e, P), self.device),
-            )
-        return self._xpow_cache[e]
+        if e in self._xpow_cache:
+            return self._xpow_cache[e]
+        N = self.fri_domain_length
+        tab = DOMAINS.get(N, self.device)["fwd_powers"]
+        idx = (torch.arange(N, device=self.device) * (e % N)) & (N - 1)
+        out = F.mont_mul(
+            tab.index_select(-1, idx),
+            mont_const(pow(self.generator.value, e, P), self.device),
+        )
+        self._xpow_cache[e] = out
+        return out
 
     def _boundary_tables(self, boundary: Boundary):
         """FRI-domain codewords of the boundary zerofiers (inverted) and
@@ -272,17 +305,20 @@ class FastStark(StarkParams):
         transition_zerofier: TransitionZerofier,
         proof_stream: Optional[ProofStream] = None,
         air_evaluator=None,
+        trace_columns: Optional[torch.Tensor] = None,
         urandom=os.urandom,
     ) -> bytes:
         """Generate a proof.  ``air_evaluator``, if given, is a device
         function (x_lde, current, next_) -> (C, L, N) evaluating the
         transition constraints pointwise; otherwise the symbolic
         constraints are compiled generically (``compile_air``).  The trace
-        comes as host rows; the JAX package's ``trace_columns`` input waits
-        for the MiMC slice.  Randomness is drawn from ``urandom`` in the
-        JAX package's order, so a seeded run gives the same bytes.  Each
-        step adds its host seconds to ``self.timer`` under the JAX
-        package's phase names."""
+        comes as host rows (``trace``) or as ``trace_columns``, an (R, L,
+        n_cycles) Montgomery tensor on the prover's device from a device
+        trace generator (models/mimc.py).  Randomness is drawn from
+        ``urandom`` in the JAX package's order, so a seeded run gives the
+        same bytes.  Each step adds its seconds to ``self.timer`` under
+        the JAX package's phase names; a phase that ends in launches waits
+        for the card."""
         if proof_stream is None:
             proof_stream = ProofStream()
         R = self.num_registers
@@ -296,19 +332,28 @@ class FastStark(StarkParams):
             [self.field.sample(urandom(17)).value for _ in range(R)]
             for _ in range(self.num_randomizers)
         ]
-        rows = [[v.value for v in row] for row in trace] + rand_rows
-        columns = torch.stack(
-            [device_from_ints([rows[c][s] for c in range(len(rows))], dev) for s in range(R)]
-        )
-        n_rows = len(rows)
+        if trace_columns is not None:
+            rand_cols = torch.stack(
+                [device_from_ints([row[s] for row in rand_rows], dev) for s in range(R)]
+            )
+            columns = torch.cat([trace_columns, rand_cols], dim=-1)
+            n_rows = trace_columns.shape[-1] + self.num_randomizers
+        else:
+            rows = [[v.value for v in row] for row in trace] + rand_rows
+            columns = torch.stack(
+                [device_from_ints([rows[c][s] for c in range(len(rows))], dev) for s in range(R)]
+            )
+            n_rows = len(rows)
 
         with timer.phase("trace_lde"):
             trace_lde = self._trace_lde(columns)                 # (R, L, N)
+            device_sync(dev)
 
         # boundary quotients, committed
         with timer.phase("boundary_quotients"):
             inv_bz, interp = self._boundary_tables(boundary)
             bq_lde = _bq_core(trace_lde, interp, inv_bz)         # (R, L, N)
+            device_sync(dev)
         with timer.phase("commit_bq"):
             bq_trees = []
             bq_rows = []
@@ -323,18 +368,24 @@ class FastStark(StarkParams):
                 air_evaluator = self._compiled_air(transition_constraints)
             air_q = _air_quotient_fn(air_evaluator, self.expansion_factor)
             tq_lde = air_q(t["x_lde"], trace_lde, transition_zerofier.inv_codeword)
+            # nothing downstream reads the trace LDE (512 MiB a register at
+            # N = 2^24)
+            del trace_lde
+            device_sync(dev)
 
         # randomizer polynomial
         max_degree = self.max_degree(transition_constraints)
-        if max_degree + 1 > self.bulk_randomizer_threshold:
-            raise NotImplementedError(
-                "bulk device randomness (stark_anatomy_tpu/utils/rand.py) is not ported yet"
-            )
         with timer.phase("randomizer_poly"):
-            rand_coeffs = [self.field.sample(urandom(17)).value for _ in range(max_degree + 1)]
-            rand_lde = NTT.coset_evaluate(
-                device_from_ints(rand_coeffs, dev), self.generator.value, N
-            )
+            if max_degree + 1 > self.bulk_randomizer_threshold:
+                # one seed expanded on the card (H5): per-element host draws
+                # would take minutes at 2^22 coefficients
+                rand_poly = bulk_random_mont(max_degree + 1, dev, urandom)
+            else:
+                rand_coeffs = [self.field.sample(urandom(17)).value for _ in range(max_degree + 1)]
+                rand_poly = device_from_ints(rand_coeffs, dev)
+            rand_lde = NTT.coset_evaluate(rand_poly, self.generator.value, N)
+            del rand_poly
+            device_sync(dev)
         with timer.phase("commit_randomizer"):
             rand_rows, rand_tree = self._commit_rows(rand_lde)
             proof_stream.push(rand_tree.root)
@@ -352,11 +403,18 @@ class FastStark(StarkParams):
             bq_shift = torch.stack([self._x_lde_pow(max_degree - b) for b in bq_bounds])
             w_dev = torch.stack([mont_const(wv.value, dev) for wv in weights])
             combo = _combination_core(rand_lde, tq_lde, bq_lde, tq_shift, bq_shift, w_dev)
+            del tq_shift, bq_shift, tq_lde, bq_lde, rand_lde
+            device_sync(dev)
 
-        # FRI on the host over the combination codeword (the transcript is
-        # byte-identical to the JAX package's device FRI)
+        # FRI over the combination codeword: on the card where its commitment
+        # is (the JAX package's fused fold and commit), else on the host;
+        # the transcripts are byte-identical
         with timer.phase("fri"):
-            indices = self.fri.prove_host(ints_from_device(combo), proof_stream)
+            if use_device_commit(N, combo.device):
+                indices = self.fri.prove(combo, proof_stream)
+            else:
+                indices = self.fri.prove_host(ints_from_device(combo), proof_stream)
+            del combo
 
         # linked openings at quadrupled indices (reference: fast_stark.py:154-177)
         with timer.phase("openings"):

@@ -1,12 +1,21 @@
-"""FRI low-degree test, host path: fold, commit, query and verify.
+"""FRI low-degree test: fold and commit on the card or on the host, query
+and verify on the host.
 
-The port of stark_anatomy_tpu/protocols/fri.py for the branch the
-signature takes: ``prove_host`` (folds on canonical ints, hashlib Merkle
-trees) and the host verifier.  Protocol parity with the reference
-(fri.py:11-231): iterated split-and-fold with Merkle commitments per
-round, Fiat-Shamir folding challenges, colinearity spot checks.  The
-device fold path of the JAX package (``Fri.commit``/``prove``) waits for
-the large-trace slice.
+The port of stark_anatomy_tpu/protocols/fri.py.  Protocol parity with the
+reference (fri.py:11-231): iterated split-and-fold with Merkle
+commitments per round, Fiat-Shamir folding challenges, colinearity spot
+checks.  Two provers give the same transcript:
+
+* ``prove`` (the JAX package's fused device path, taken where
+  commit/device_merkle.py:use_device_commit says so): each round is one
+  launch of H6 (field/kernels.py:fri_fold: the fold, the canonical form of
+  the folded codeword and the next round's inverse-domain table) and the
+  H4 passes of its tree, and only the 32-byte root is copied to the host.
+  Once a folded codeword has HOST_TAIL_MAX elements or fewer, the
+  remaining rounds fold host ints.  Rounds are sized exactly: the JAX
+  package's shape-family padding (``_family_width``) only spared XLA
+  compiles, and gives the same transcript;
+* ``prove_host`` folds canonical ints on the host and hashes with N1.
 
 Deliberate deviations (documented in DEVIATIONS.md): index-sampling counter
 bytes use a fixed-width encoding, and colinearity accepts degree <= 1.
@@ -15,14 +24,21 @@ bytes use a fixed-width encoding, and colinearity accepts degree <= 1.
 from __future__ import annotations
 
 from hashlib import blake2b
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
+import torch
+
+from ..commit import kernels as MK
+from ..commit.device_merkle import DeviceMerkleTree, DeviceRows, device_commit_paired
 from ..commit.merkle import MerkleTree, open_multi, verify_multi
 from ..errors import MalformedProof, VerificationError, rejects_malformed
+from ..field import kernels as K
+from ..field import ops as F
 from ..field.scalar import Field, P
+from ..ops.domain import power_table
 from ..poly.host_ntt import intt_ints
 from ..transcript.proof_stream import ProofStream
-from ..utils.convert import gather_rows
+from ..utils.convert import gather_rows, ints_from_device
 
 _TWO_INV = pow(2, P - 2, P)
 
@@ -45,7 +61,12 @@ class Fri:
         self.expansion_factor = expansion_factor
         self.num_colinearity_tests = num_colinearity_tests
         self._host_u0 = None  # lazy inverse-domain table
+        self._u0 = {}         # device -> (NLIMBS, N/2) Montgomery table
         assert self.num_rounds() >= 1, "cannot do FRI with less than one round"
+
+    # once a folded codeword has this many elements or fewer, the prover
+    # leaves the card and folds host ints (the JAX package's HOST_TAIL_MAX)
+    HOST_TAIL_MAX = 1 << 14
 
     # -- round structure (reference: fri.py:22-28) --------------------------
     def num_rounds(self) -> int:
@@ -90,6 +111,90 @@ class Fri:
     def _layer_len(layer) -> int:
         return len(layer) if isinstance(layer, list) else layer.shape[0]
 
+    # -- device prover -------------------------------------------------------
+    def _initial_u(self, device) -> torch.Tensor:
+        """The inverse-domain table u_i = 1/(offset * omega^i), i < N/2,
+        (NLIMBS, N/2) Montgomery, cached per device."""
+        device = torch.device(device)
+        if device not in self._u0:
+            half = self.domain_length // 2
+            tab = power_table(pow(self.omega, P - 2, P), half, device)
+            self._u0[device] = F.mont_mul(tab, F.mont_const(pow(self.offset, P - 2, P), device))
+        return self._u0[device]
+
+    @staticmethod
+    def _fold_ints(codeword: List[int], u: List[int], alpha: int) -> List[int]:
+        half = len(codeword) // 2
+        return [
+            _TWO_INV
+            * ((1 + alpha * u[i]) * codeword[i] + (1 - alpha * u[i]) * codeword[half + i])
+            % P
+            for i in range(half)
+        ]
+
+    def commit(self, codeword: torch.Tensor, proof_stream: ProofStream):
+        """Fold rounds of a Montgomery codeword (NLIMBS, N); returns (layers,
+        trees), each layer a DeviceRows or, on the host tail, a list of
+        canonical ints.  Mirrors the reference's commit loop (fri.py:56-96):
+        per round, commit the current codeword, draw the challenge, fold.
+        On the card a round is one H6 launch and the H4 passes of the
+        folded codeword's tree; below HOST_TAIL_MAX the current layer is
+        copied once and the rest folds host ints.  The last layer is
+        committed and sent in the clear.  Commitments use paired leaves:
+        leaf i covers (c[i], c[i + n/2]), the fold's pair."""
+        codeword = codeword.contiguous()
+        u = self._initial_u(codeword.device)
+        layers, trees = [], []
+        num = self.num_rounds()
+        host_ints: Optional[List[int]] = None   # set once on the host tail
+        host_u: Optional[List[int]] = None
+
+        rows, tree = device_commit_paired(codeword)
+        for r in range(num):
+            proof_stream.push(tree.root)
+            layers.append(rows)
+            trees.append(tree)
+            if r == num - 1:
+                break
+            alpha = self.field.sample(proof_stream.prover_fiat_shamir()).value
+            half = self.domain_length >> (r + 1)
+            if host_ints is None and half > self.HOST_TAIL_MAX:
+                codeword, canon, u = K.fri_fold(codeword, u, alpha)
+                rows, tree = DeviceRows(canon), DeviceMerkleTree(MK.merkle_paired(canon))
+            else:
+                if host_ints is None:
+                    # leave the card: copy the current layer and its
+                    # inverse-domain table once
+                    host_ints = gather_rows(rows, range(2 * half))
+                    host_u = ints_from_device(u)
+                host_ints = self._fold_ints(host_ints, host_u, alpha)
+                host_u = [v * v % P for v in host_u[: half // 2]]
+                rows, tree = host_ints, self._host_tree(host_ints)
+
+        last = layers[-1]
+        proof_stream.push(list(last) if isinstance(last, list)
+                          else gather_rows(last, range(self._layer_len(last))))
+        return layers, trees
+
+    def prove(self, codeword: torch.Tensor, proof_stream: ProofStream) -> List[int]:
+        """The device prover over a Montgomery codeword (NLIMBS, N); the
+        transcript of ``prove_host`` on the same values."""
+        assert self.domain_length == codeword.shape[-1], (
+            "initial codeword length does not match FRI domain length"
+        )
+        layers, trees = self.commit(codeword, proof_stream)
+        top_level_indices = self.sample_indices(
+            proof_stream.prover_fiat_shamir(),
+            self._layer_len(layers[0]) // 2,
+            self._layer_len(layers[-1]),
+            self.num_colinearity_tests,
+        )
+        indices = list(top_level_indices)
+        for i in range(len(layers) - 1):
+            indices = [idx % (self._layer_len(layers[i]) // 2) for idx in indices]
+            self.query(layers[i], trees[i], indices, proof_stream)
+        return top_level_indices
+
     def query(
         self,
         current_layer,
@@ -111,15 +216,14 @@ class Fri:
 
     # -- host prover -----------------------------------------------------------
     def _host_u(self) -> List[int]:
+        """Host inverse-domain table 1/(offset * omega^i), i < N/2, cached."""
         if self._host_u0 is None:
-            half = self.domain_length // 2
             omega_inv = pow(self.omega, P - 2, P)
-            offset_inv = pow(self.offset, P - 2, P)
-            u, us = offset_inv, []
-            for _ in range(half):
-                us.append(u)
+            u = pow(self.offset, P - 2, P)
+            self._host_u0 = []
+            for _ in range(self.domain_length // 2):
+                self._host_u0.append(u)
                 u = u * omega_inv % P
-            self._host_u0 = us
         return self._host_u0
 
     @staticmethod
@@ -140,7 +244,6 @@ class Fri:
         """Host-resident mirror of :meth:`prove` over canonical ints;
         byte-identical transcript output."""
         assert self.domain_length == len(codeword)
-        two_inv = _TWO_INV
         u = self._host_u()
         layers: List[List[int]] = []
         trees: List[MerkleTree] = []
@@ -153,15 +256,7 @@ class Fri:
                 break
             alpha = self.field.sample(proof_stream.prover_fiat_shamir()).value
             half = len(codeword) // 2
-            codeword = [
-                two_inv
-                * (
-                    (1 + alpha * u[i]) * codeword[i]
-                    + (1 - alpha * u[i]) * codeword[half + i]
-                )
-                % P
-                for i in range(half)
-            ]
+            codeword = self._fold_ints(codeword, u, alpha)
             u = [v * v % P for v in u[: half // 2]]
         proof_stream.push(list(layers[-1]))
 

@@ -2,7 +2,7 @@
 
 One compiler call per source writes a shared library with a plain C
 interface into ``_build/`` (git-ignored), named by a hash of the source,
-the flags and the compiler's path, so a changed source or flag builds anew
+the headers it includes, the flags and the compiler's path, so a changed source or flag builds anew
 and an unchanged one is loaded as it is.  The calls of one ``build_all``
 run side by side.  A build goes to a temporary file that is renamed into
 place, so processes that build the same library at once do not see each
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
@@ -21,17 +22,21 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 
 class Job(NamedTuple):
-    """One library: ``compiler flags -o <lib> source``."""
+    """One library: ``compiler flags -o <lib> source``; ``headers`` are the
+    files the source includes, hashed into the library's name with it."""
 
     stem: str
     compiler: str
     flags: Tuple[str, ...]
     source: str
+    headers: Tuple[str, ...] = ()
 
 
 def library_path(job: Job) -> str:
-    with open(job.source, "rb") as f:
-        src = f.read()
+    src = b""
+    for path in (job.source, *job.headers):
+        with open(path, "rb") as f:
+            src += f.read() + b"\0"
     key = hashlib.sha256(
         src + " ".join(job.flags).encode() + b"\0" + os.path.realpath(job.compiler).encode()
     ).hexdigest()[:16]
@@ -66,3 +71,13 @@ def build_all(jobs: Sequence[Job]) -> Tuple[Dict[str, str], str]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths, "".join(log)
+
+
+def host_compiler() -> str:
+    """The host C++ compiler of the native host libraries (N1, N2):
+    $CXX, else c++, else g++."""
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++ or g++) found")

@@ -4,9 +4,11 @@ The port of stark_anatomy_tpu/utils/profiling.py.  ``PhaseTimer`` adds
 host wall-clock seconds per named phase; the prover's phases use the JAX
 package's names (protocols/fast_stark.py:prove, parallel/batch_prover.py:
 prove_batch), so the two packages' reports compare phase by phase.  It
-adds no device synchronisation of its own: each phase of the prover ends
-in a copy to the host or in host work, which waits for the card.
-``device_trace`` records a torch.profiler trace of the card.
+adds no device synchronisation of its own: a phase of ``prove_batch`` ends
+in a copy to the host or in host work, which waits for the card, and a
+phase of ``FastStark.prove`` that ends in launches calls ``device_sync``,
+as the JAX package's prover does.  ``device_trace`` records a
+torch.profiler trace of the card.
 """
 
 from __future__ import annotations
@@ -38,6 +40,16 @@ class PhaseTimer:
         for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
             lines.append(f"{name:<28s} {total*1000:10.2f} ms  x{self.counts[name]}")
         return "\n".join(lines)
+
+
+def device_sync(device) -> None:
+    """Wait for the card at a phase boundary, so that the phase's seconds
+    hold its own device work; nothing to wait for on the CPU."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 @contextlib.contextmanager
