@@ -31,7 +31,8 @@ Phases (each prints its wall seconds):
 2. main path: ``FastRPSSS()`` keygen, sign and verify on the card at the
    production parameters; verify must accept, and reject a forged
    document and another key's pk; every kernel must be launched in that
-   sign; then one warm-up and three timed signs and verifies,
+   sign (H7, the batched FRI fold, is launched there too: a sign is a
+   batch of one); then one warm-up and three timed signs and verifies,
    and the kernel launches of one warm sign; the Rescue trace alone,
    which must be one ``rescue_perm`` launch and no H0/H1 launch; the
    prover's phase seconds (PhaseTimer) of the timed signs; a device
@@ -62,7 +63,19 @@ Phases (each prints its wall seconds):
    first prove and verify, three steady proves (median, phases), a false
    output rejected, the proof's bytes, peak device memory, the launches
    of one steady prove, its device busy share (torch.profiler), and the
-   pipelined prover over four statements against four serial proves.
+   pipelined prover over four statements against four serial proves;
+6. batch signing: H7 ``fri_fold_batched`` against its plain version on
+   the card at (64, 8, 4096) and (64, 8, 512) with 0, 1 and p - 1 among
+   the inputs and a distinct challenge per proof, with its times and
+   bound; a production batch of 64 signatures by ``make_batch_rpsss()``
+   (a warm batch, then a steady one: seconds per batch and per signature,
+   the five phases, the launches by kernel), every signature verified by
+   ``FastRPSSS``, a forged document and another key's pk rejected, the
+   device busy share of a batch (torch.profiler) and its host profile
+   (cProfile); then the card against the CPU byte for byte: a seeded
+   batch of 3 at the tests' small parameters, a seeded slow ``Stark`` proof at
+   tests/test_stark.py's parameters, and ``entry()``'s core outputs at
+   B = 2; and ``interpolate_generic`` round trips at n = 16 and 256.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 line with one record per kernel, and the result line
@@ -74,6 +87,7 @@ script, it exits non-zero at once.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 import random
@@ -118,13 +132,14 @@ KERNEL_INFO = {
     "merkle": ("stark_anatomy_tpu/commit/device_merkle.py:57", None),
     "seed_expand": ("stark_anatomy_tpu/utils/rand.py:33", None),
     "fri_fold": ("stark_anatomy_tpu/protocols/fri.py:43", None),
+    "fri_fold_batched": ("stark_anatomy_tpu/protocols/fri.py:53", None),
 }
 # the profiler's kernel names
 PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
                 "add_mod": "AddMod", "sub_mod": "SubMod",
                 "rescue_perm": "rescue_kernel", "ntt": "ntt_kernel",
                 "merkle": "merkle_kernel", "seed_expand": "seed_expand_kernel",
-                "fri_fold": "fri_fold_kernel"}
+                "fri_fold": "fri_fold_kernel", "fri_fold_batched": "fri_fold_batched_kernel"}
 RESCUE_BATCHES = (1, 7, 4096)
 NTT_SIZES = (1, 2, 1024, 4096, 8192)
 NTT_MAIN = (2, 8, 4096)          # the LDE: coset_evaluate of two trace columns
@@ -141,6 +156,18 @@ FOLD_HALF = 1 << 23                         # its top FRI round
 NTT_LARGE = (22, 24)                        # log2 of its transforms: the trace iNTT, the LDEs
 TREE_PATH = 1 << 24                         # its largest tree: the quotients', FRI's first layer
 FOLD_BYTES = 176    # per folded element: c_i, c_{i+h}, u_i read; folded, canon, u_i^2 / 2 written
+# batch signing: the JAX package's BASELINE config 5 signs a batch of 64
+# (stark_anatomy_tpu/parallel/batch_prover.py:9)
+BATCH = 64
+FOLD_BATCHED_SHAPES = ((BATCH, 8, 4096), (BATCH, 8, 512))   # a batch's first FRI round, and its last fold
+BATCH_KERNELS = ("fri_fold_batched",)        # its record is made, and its launches read, on the batch's path
+L2_BYTES = 50 << 20                          # H100 L2: timed inputs rotate over more than twice this
+SMALL_BATCH = 3                              # the tests' seeded batch (tests/test_torch_batch_prover.py)
+INTERP_SIZES = (16, 256)
+FOLD_BATCHED_BYTES = 128    # per folded element: c_i, c_{i+h} read; folded, canon written
+BATCH_SPANS = ("hash", "sample", "device_from_ints", "_boundary_tables", "pipeline",
+               "canonical_np", "from_limbs_paired", "combination", "_fri_batch", "fri_fold_batched",
+               "limb_rows_np", "query", "open_multi", "gather_rows", "serialize")
 LARGE_PHASES = ("trace_gen", "trace_lde", "boundary_quotients", "commit_bq", "air_quotients",
                 "randomizer_poly", "commit_randomizer", "combination", "fri", "openings")
 
@@ -318,8 +345,8 @@ def profile_sign(sign) -> None:
 # the prover's main steps, and what prove_batch does before its first
 # phase: the host Rescue hash of the boundary, the max-degree bound of the
 # symbolic AIR, the randomness draws and their upload
-HOST_SPANS = ("trace_batch", "_phase1_impl", "from_limbs_paired", "_phase2_impl",
-              "prove_host", "open_multi", "hash", "max_degree", "sample", "device_from_ints")
+HOST_SPANS = ("trace_batch", "pipeline", "from_limbs_paired", "combination",
+              "_fri_batch", "open_multi", "hash", "max_degree", "sample", "device_from_ints")
 # the steps of a large-trace prove: N2's chain, the boundary tables, the
 # device FRI's rounds, its copy of the host tail and the host folds and
 # trees, the query rounds, the openings' gathers, the transcript
@@ -681,6 +708,188 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
           f"over {len(inputs)} statements, every proof verified, on {smi}")
 
 
+def batch_path(dev, smi, records, worst_err, compare, scheme) -> None:
+    """Phase 6: H7 against its plain version, a production batch of 64
+    signatures, the card against the CPU (a small batch, the slow Stark,
+    the entry's core) and interpolate_generic's round trips."""
+    import torch
+
+    from stark_anatomy_tpu_torch.entry import entry
+    from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field.scalar import Field, P
+    from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime
+    from stark_anatomy_tpu_torch.ops import evaluate_generic, interpolate_generic
+    from stark_anatomy_tpu_torch.parallel.batch_prover import BatchProver, make_batch_rpsss
+    from stark_anatomy_tpu_torch.protocols.fast_stark import FastStark
+    from stark_anatomy_tpu_torch.protocols.stark import Stark
+    from stark_anatomy_tpu_torch.transcript.proof_stream import SignatureProofStream
+    from stark_anatomy_tpu_torch.utils.convert import device_from_ints, ints_from_device
+
+    # H7 against its plain version, both on the card: the special values at
+    # the start of every codeword, of its second half (their fold partners)
+    # and of u; the challenges distinct, 0, 1 and p - 1 first.  The timed
+    # launches rotate over codewords of more than twice the L2 in all, so
+    # each reads its input from device memory, as its byte bound counts.
+    rng = random.Random(6000)
+    special = device_from_ints([0, 1, P - 1], dev)
+    for k, (batch, _, n) in enumerate(FOLD_BATCHED_SHAPES):
+        h = n // 2
+        cw = random_codeword((batch, 8, n), 6010 + k, dev)
+        u = random_codeword((8, h), 6020 + k, dev)
+        cw[:, :, :3] = special
+        cw[:, :, h:h + 3] = special
+        u[:, :3] = special
+        alphas = [0, 1, P - 1] + [rng.randrange(P) for _ in range(batch - 3)]
+        assert len(set(alphas)) == batch
+        al = device_from_ints(alphas, dev).t().contiguous().unsqueeze(-1)
+        got = K.fri_fold_batched(cw, u, al)
+        torch.cuda.synchronize()
+        want = K.fri_fold_batched_plain(cw, u, al)
+        for label, g, w in zip(("folded", "canonical", "u^2"), got, want):
+            compare("fri_fold_batched", f"({batch}, 8, {n}) {label}", g, w)
+        n_sets = 2 * L2_BYTES // (cw.numel() * 4) + 1
+        cws = itertools.cycle([cw] + [random_codeword((batch, 8, n), 6100 + 100 * k + j, dev)
+                                      for j in range(1, n_sets)])
+        launch = lambda: K.fri_fold_batched(next(cws), u, al)
+        ms = time_launches(launch, 200)
+        dev_us = profile_kernel("fri_fold_batched", launch, 50)
+        plain_ms = time_launches(lambda: K.fri_fold_batched_plain(cw, u, al), 3, warm=1)
+        t = time.perf_counter()
+        for _ in range(200):
+            launch()
+        enqueue_us = (time.perf_counter() - t) / 200 * 1e6
+        torch.cuda.synchronize()
+        # bytes: the codewords and u read once, the challenges, both outputs
+        # and u^2 written once
+        nbytes = FOLD_BATCHED_BYTES * batch * h + 48 * h + 32 * batch
+        ops = batch * h * (4 * MUL_OPS + 3 * ADD_OPS) + h // 2 * SQR_OPS
+        bound = bound_ms(1, nbytes, ops)
+        if k == 0:
+            records["fri_fold_batched"] = kernel_record("fri_fold_batched", worst_err["fri_fold_batched"],
+                                                        ms, plain_ms, bound)
+        print(f"  fri_fold_batched ({batch}, 8, {n}): {ms:.6f} ms/launch (CUDA events), device "
+              f"{fmt_us(dev_us)}/launch (inputs rotated over {n_sets} codewords of {cw.numel() * 4} bytes), "
+              f"host {enqueue_us:.2f} us/call (enqueue), plain {plain_ms:.3f} ms, "
+              f"bound {bound[0]:.6f} ms ({bound[1]}: {nbytes} bytes)")
+    del cw, cws, u, got, want
+
+    # a production batch of 64 signatures on the card
+    prover, keygen, sign_batch = make_batch_rpsss(urandom=det_urandom(b"chip smoke batch"))
+    assert prover.stark.device == torch.device(dev), prover.stark.device
+    keys = [keygen() for _ in range(BATCH)]
+    sks = [sk for sk, _ in keys]
+    docs = [b"chip smoke batch document %d" % i for i in range(BATCH)]
+    t = time.perf_counter()
+    sign_batch(sks, docs)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    timer = prover.stark.timer
+    timer.totals.clear()
+    timer.counts.clear()
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    sigs = sign_batch(sks, docs)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t
+    batch_launches = dict(K.LAUNCHES)
+    phases = dict(timer.totals)
+    assert len(sigs) == BATCH
+    for name in BATCH_KERNELS:
+        assert batch_launches[name] > 0, f"{name} was not launched by the batch"
+        records[name]["launches"] = batch_launches[name]
+    print(f"batch of {BATCH} (make_batch_rpsss, production parameters): warm batch {warm_s:.4f} s, "
+          f"steady batch {steady_s:.4f} s = {steady_s / BATCH:.5f} s per signature on {smi}")
+    total = sum(phases.values())
+    print("  phases of the steady batch (PhaseTimer, s): "
+          + ", ".join(f"{p} {phases.get(p, 0.0):.4f}" for p in PHASES)
+          + f"; sum {total:.4f} = {100 * total / steady_s:.1f}% of the batch")
+    print(f"  kernel launches in the steady batch: {sum(batch_launches.values())} {batch_launches}")
+    t = time.perf_counter()
+    for (sk, pk), doc, sig in zip(keys, docs, sigs):
+        assert scheme.verify(pk, doc, sig), f"FastRPSSS rejected a batch signature: {scheme.stark.last_rejection}"
+    verify_s = time.perf_counter() - t
+    assert not scheme.verify(keys[0][1], b"forged document", sigs[0]), "verify accepted a forged document"
+    assert not scheme.verify(keys[1][1], docs[0], sigs[0]), "verify accepted another key's pk"
+    print(f"  all {BATCH} signatures verify under FastRPSSS ({verify_s:.3f} s, {verify_s / BATCH:.5f} s each); "
+          f"a forged document and another key's pk are rejected; {len(sigs[0])} bytes a signature")
+    wall, busy, seen = profile_all(lambda: sign_batch(sks, docs))
+    if busy is None:
+        print(f"  profile of one batch: wall {wall:.4f} s, device time not measured")
+    else:
+        print(f"  profile of one batch: wall {wall:.4f} s (under the profiler), device busy {busy:.4f} s = "
+              f"{100 * busy / wall:.2f}% of wall, {sum(c for c, _ in seen.values())} device launches")
+        for key, (cnt, us) in sorted(seen.items(), key=lambda kv: -kv[1][1])[:10]:
+            print(f"  {us / 1e3:9.3f} ms  {cnt:6d} launches  {key[:90]}")
+    host_profile(f"one batch of {BATCH}", lambda: sign_batch(sks, docs), BATCH_SPANS)
+    del prover, sign_batch, sigs
+    torch.cuda.empty_cache()
+
+    # the card against the CPU: a seeded small batch through the batched FRI
+    field, rp = Field.main(), RescuePrime()
+    inputs = [field.sample(bytes([7, i])) for i in range(SMALL_BATCH)]
+    small_docs = [b"chip smoke small batch %d" % i for i in range(SMALL_BATCH)]
+    small = {}
+    for label, device in (("card", dev), ("cpu", "cpu")):
+        stark = FastStark(field, 4, 2, 4, rp.m, rp.N + 1, transition_constraints_degree=3, device=device)
+        bp = BatchProver(stark, rp, stark.preprocess())
+        K.reset_launch_counts()
+        proofs = bp.prove_batch(inputs, [SignatureProofStream(d) for d in small_docs],
+                                urandom=det_urandom(b"chip smoke small batch"))
+        if label == "card":
+            torch.cuda.synchronize()
+            assert K.LAUNCHES["fri_fold_batched"] > 0, "the small batch did not fold on the card"
+        small[label] = (bp, proofs)
+    (cbp, cproofs), (hbp, hproofs) = small["card"], small["cpu"]
+    assert cproofs == hproofs, "the card and the CPU proved different batches"
+    for i, x in enumerate(inputs):
+        boundary = rp.boundary_constraints(rp.hash(x))
+        factory = lambda pr, d=small_docs[i]: SignatureProofStream.deserialize_with_document(pr, d)
+        assert cbp.stark.verify(hproofs[i], cbp.air, boundary, cbp.tz.root, proof_stream_factory=factory)
+        assert hbp.stark.verify(cproofs[i], hbp.air, boundary, hbp.tz.root, proof_stream_factory=factory)
+    print(f"  seeded batch of {SMALL_BATCH} (N = {cbp.stark.fri_domain_length}): card and "
+          f"CPU proofs identical ({[len(p) for p in cproofs]} bytes), cross-verified")
+
+    # the slow scalar Stark at tests/test_stark.py's parameters
+    witness = field.sample(b"chip smoke slow stark")
+    output = rp.hash(witness)
+    trace, boundary = rp.trace(witness), rp.boundary_constraints(output)
+    slow = {}
+    for label, device in (("card", dev), ("cpu", "cpu")):
+        stark = Stark(field, 4, 2, 2, rp.m, rp.N + 1, device=device)
+        air = rp.transition_constraints(stark.omicron)
+        t = time.perf_counter()
+        proof = stark.prove(trace, air, boundary, urandom=det_urandom(b"chip smoke slow stark"))
+        slow[label] = (stark, air, proof, time.perf_counter() - t)
+    (cst, cair, cproof, cs), (hst, hair, hproof, hs) = slow["card"], slow["cpu"]
+    assert cproof == hproof, "the card and the CPU proved different slow Stark proofs"
+    assert cst.verify(hproof, cair, boundary) and hst.verify(cproof, hair, boundary)
+    assert not cst.verify(cproof, cair, rp.boundary_constraints(output + field.one()))
+    print(f"  slow Stark: card and CPU proofs identical ({len(cproof)} bytes; prove {cs:.3f} s and "
+          f"{hs:.3f} s), cross-verified, a wrong boundary rejected")
+
+    # the entry's core at B = 2
+    outs = {}
+    for label, device in (("card", dev), ("cpu", "cpu")):
+        core, args = entry(device)
+        outs[label] = [o.cpu() for o in core(*args)]
+    for name, c, h in zip(("combination", "boundary quotients", "randomizer"), outs["card"], outs["cpu"]):
+        assert torch.equal(c, h), f"entry(): the card's {name} codewords differ from the CPU's"
+    print(f"  entry(): the core's three outputs {[tuple(o.shape) for o in outs['card']]} are identical "
+          f"on the card and the CPU")
+
+    # generic interpolation: round trips on the card, equal to the CPU's
+    for n in INTERP_SIZES:
+        pts = [rng.randrange(P) for _ in range(n)]
+        assert len(set(pts)) == n
+        vals = [rng.randrange(P) for _ in range(n)]
+        coeffs = interpolate_generic(device_from_ints(pts, dev), device_from_ints(vals, dev))
+        back = ints_from_device(evaluate_generic(coeffs, device_from_ints(pts, dev)))
+        assert back == vals, f"interpolate_generic round trip at n = {n} failed on the card"
+        cpu_coeffs = interpolate_generic(device_from_ints(pts, "cpu"), device_from_ints(vals, "cpu"))
+        assert ints_from_device(coeffs) == ints_from_device(cpu_coeffs), f"interpolate_generic n = {n}"
+        print(f"  interpolate_generic n = {n}: round trip on the card, coefficients equal the CPU's")
+
+
 def main() -> int:
     import torch
 
@@ -972,10 +1181,12 @@ def main() -> int:
     assert not scheme.verify(pk_other, DOC, sig), "verify accepted another key's pk"
     # H4, H5 and H6 are not on this path (the sign's codewords are under
     # DEVICE_COMMIT_MIN, its randomizer under bulk_randomizer_threshold);
-    # phase 5's 2^20 path reads their launches
+    # phase 5's 2^20 path reads their launches.  H7's record is made in
+    # phase 6, which reads the batch's launches.
     for name in K.KERNELS:
         if name not in LARGE_KERNELS:
             assert sign_launches[name] > 0, f"{name} was not launched during sign"
+        if name not in LARGE_KERNELS + BATCH_KERNELS:
             records[name]["launches"] = path_launches[name]
     print(f"signature: {len(sig)} bytes")
 
@@ -1107,6 +1318,12 @@ def main() -> int:
     large_path(dev, smi, records, worst_err, compare)
     assert worst_mismatch == 0, "a kernel disagrees with its plain version"
     phase("5 large-trace path", t5)
+
+    # -- phase 6: batch signing ----------------------------------------------
+    t6 = time.perf_counter()
+    batch_path(dev, smi, records, worst_err, compare, scheme)
+    assert worst_mismatch == 0, "a kernel disagrees with its plain version"
+    phase("6 batch signing", t6)
 
     print(f"total: {time.perf_counter() - t0:.3f} s")
     print(smi)

@@ -28,6 +28,10 @@
 //   round's inverse-domain table.  Replaces the jnp graphs
 //   stark_anatomy_tpu/protocols/fri.py:_fold_kernel and _square_half, and
 //   _fold_commit_padded without its tree (the tree stays H4).
+// H7 stark_fri_fold_batched: H6 over a batch of B codewords in one launch,
+//   one challenge per proof and the inverse-domain table shared.  Replaces
+//   the jnp graph stark_anatomy_tpu/protocols/fri.py:_fold_kernel_batched
+//   and _square_half as parallel/batch_prover.py:_fri_batch runs them.
 //
 // Layout: the JAX package's, kept at the port's public functions.  An
 // element is 8 little-endian 16-bit limbs held in int32 lanes, on a limb
@@ -121,6 +125,18 @@
 //     round of the 2^20-step MiMC proof, that is 1.48 GB, 0.44 ms at
 //     3.35 TB/s.  The limb rows of each operand are read and written
 //     coalesced, one pass over each array, nothing staged.
+//   * H7 (fri_fold_batched_kernel) runs H6's element (fold_element, the
+//     same device function) over a grid of (elements, proofs): blockIdx.y
+//     is the proof, whose challenge every thread of the block loads from
+//     the (B, 8, 1) tensor (the same 32 bytes for the block, an L1 hit),
+//     so the challenges never pass through the host as launch arguments
+//     and one launch folds the whole batch.  u is shared by the batch and
+//     its square is written once, by proof 0's threads.  What bounds it:
+//     bytes, as H6, but u is read by every proof (an L2 hit after the
+//     first: 32 h bytes from device memory), so about 128 bytes an output
+//     element plus 48 h.  At B = 64 and h = 2048, a production batch's
+//     first round, that is 16.9 MB, about 5 us at 3.35 TB/s: under the
+//     host time of a launch, which is what a round of the batch pays.
 //
 // Built by one nvcc call into a shared library with a plain C interface
 // (field/kernels.py).  Every entry point launches on the caller's stream,
@@ -361,6 +377,24 @@ __global__ void __launch_bounds__(kNttThreads)
 
 constexpr int kFoldThreads = 256;
 
+// One element of the FRI fold, shared by H6 and H7: from c[i] = a,
+// c[i + h] = b and u[i], folded = 2^-1 ((a + b) + alpha u (a - b)) in
+// Montgomery form and canon its canonical form (one more product with 1).
+__device__ __forceinline__ void fold_element(const uint32_t a[4], const uint32_t b[4],
+                                             const uint32_t ui[4], const uint32_t alpha[4],
+                                             const uint32_t two_inv[4], uint32_t folded[4],
+                                             uint32_t canon[4]) {
+  uint32_t s[4], d[4], au[4];
+  AddMod()(a, b, s);
+  SubMod()(a, b, d);
+  mont_mul_words(alpha, ui, au);
+  mont_mul_words(au, d, d);
+  AddMod()(s, d, s);
+  mont_mul_words(two_inv, s, folded);
+  const uint32_t one[4] = {1u, 0u, 0u, 0u};
+  mont_mul_words(folded, one, canon);
+}
+
 // c: contiguous (8, 2h) Montgomery codeword; u: contiguous (8, h).  Writes
 // folded and canon (8, h) and u2 (8, h/2).  alpha and two_inv are
 // Montgomery words, least significant first.
@@ -374,24 +408,50 @@ __global__ void __launch_bounds__(kFoldThreads)
   uint32_t alpha[4], two_inv[4];
   to_words(alpha4, alpha);
   to_words(two_inv4, two_inv);
-  const uint32_t one[4] = {1u, 0u, 0u, 0u};
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < h;
        i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    uint32_t a[4], b[4], ui[4], s[4], d[4];
+    uint32_t a[4], b[4], ui[4], f[4], cn[4];
     load4(cw, 0, i, a);
     load4(cw, 0, i + h, b);
     load4(ut, 0, i, ui);
-    AddMod()(a, b, s);
-    SubMod()(a, b, d);
-    uint32_t au[4];
-    mont_mul_words(alpha, ui, au);
-    mont_mul_words(au, d, d);
-    AddMod()(s, d, s);
-    mont_mul_words(two_inv, s, s);
-    store4(folded, 0, i, h, s);
-    mont_mul_words(s, one, s);
-    store4(canon, 0, i, h, s);
+    fold_element(a, b, ui, alpha, two_inv, f, cn);
+    store4(folded, 0, i, h, f);
+    store4(canon, 0, i, h, cn);
     if (i < h / 2) {
+      mont_sqr_words(ui, ui);
+      store4(u2, 0, i, h / 2, ui);
+    }
+  }
+}
+
+// H7.  c: contiguous (B, 8, 2h) Montgomery codewords; u: contiguous (8, h),
+// shared; alphas: contiguous (B, 8, 1) Montgomery challenges, one a proof.
+// Writes folded and canon (B, 8, h) and u2 (8, h/2).  blockIdx.y is the
+// proof; the x dimension strides over its h elements.  Only proof 0's
+// threads write u2, so each of its elements is written once.
+__global__ void __launch_bounds__(kFoldThreads)
+    fri_fold_batched_kernel(int32_t* __restrict__ folded, int32_t* __restrict__ canon,
+                            int32_t* __restrict__ u2, const int32_t* __restrict__ c,
+                            const int32_t* __restrict__ u,
+                            const int32_t* __restrict__ alphas, int64_t h,
+                            uint4 two_inv4) {
+  const int64_t proof = blockIdx.y;
+  const Operand cw{c, 16 * h, 2 * h, 1};
+  const Operand ut{u, 0, h, 1};
+  const Operand al{alphas, 8, 1, 0};
+  uint32_t alpha[4], two_inv[4];
+  load4(al, proof, 0, alpha);
+  to_words(two_inv4, two_inv);
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < h;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    uint32_t a[4], b[4], ui[4], f[4], cn[4];
+    load4(cw, proof, i, a);
+    load4(cw, proof, i + h, b);
+    load4(ut, 0, i, ui);
+    fold_element(a, b, ui, alpha, two_inv, f, cn);
+    store4(folded, proof, i, h, f);
+    store4(canon, proof, i, h, cn);
+    if (proof == 0 && i < h / 2) {
       mont_sqr_words(ui, ui);
       store4(u2, 0, i, h / 2, ui);
     }
@@ -538,6 +598,30 @@ int stark_fri_fold(void* folded, void* canon, void* u2, const void* c,
       static_cast<int32_t*>(folded), static_cast<int32_t*>(canon),
       static_cast<int32_t*>(u2), static_cast<const int32_t*>(c),
       static_cast<const int32_t*>(u), h, alpha, two_inv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H7.  c: contiguous (batch, 8, 2h) Montgomery codewords, u: contiguous
+// (8, h), alphas: contiguous (batch, 8, 1) Montgomery, h >= 2 and
+// 1 <= batch <= 65535 (the grid's y dimension).  folded, canon:
+// contiguous (batch, 8, h); u2: contiguous (8, h/2).  two_inv: Montgomery
+// form, as low and high 64-bit halves.
+int stark_fri_fold_batched(void* folded, void* canon, void* u2, const void* c,
+                           const void* u, const void* alphas, int64_t batch,
+                           int64_t h, uint64_t two_inv_lo, uint64_t two_inv_hi,
+                           void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (h < 2 || batch < 1 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const uint4 two_inv = make_uint4(static_cast<uint32_t>(two_inv_lo),
+                                   static_cast<uint32_t>(two_inv_lo >> 32),
+                                   static_cast<uint32_t>(two_inv_hi),
+                                   static_cast<uint32_t>(two_inv_hi >> 32));
+  const dim3 grid(grid_for(h, kFoldThreads), static_cast<unsigned>(batch));
+  fri_fold_batched_kernel<<<grid, kFoldThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(folded), static_cast<int32_t*>(canon),
+      static_cast<int32_t*>(u2), static_cast<const int32_t*>(c),
+      static_cast<const int32_t*>(u), static_cast<const int32_t*>(alphas), h, two_inv);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,7 +11,10 @@ launch (stark_anatomy_tpu/models/rescue_prime.py:_permutation_scan), and
 H3 ``ntt`` a whole NTT of up to 8192 points in one launch
 (stark_anatomy_tpu/ops/ntt.py:ntt_core).  H6 ``fri_fold`` runs one round of
 the FRI fold (stark_anatomy_tpu/protocols/fri.py:_fold_kernel and
-_square_half) and writes the folded codeword's canonical form beside it.
+_square_half) and writes the folded codeword's canonical form beside it;
+H7 ``fri_fold_batched`` does the same for a batch of codewords, one
+challenge per proof (stark_anatomy_tpu/protocols/fri.py:
+_fold_kernel_batched).
 The sources are csrc/field.cu and the word arithmetic it shares with
 csrc/merkle.cu, csrc/field_arith.cuh; the header of field.cu says what
 bounds each kernel and how the design answers it.
@@ -56,7 +59,7 @@ NVCC_FLAGS = (
 )
 BINARY = ("mont_mul", "add_mod", "sub_mod")
 KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "rescue_perm", "ntt", "merkle",
-           "seed_expand", "fri_fold")
+           "seed_expand", "fri_fold", "fri_fold_batched")
 LIBRARY = {name: "stark_merkle" if name in ("merkle", "seed_expand") else "stark_field"
            for name in KERNELS}
 RESCUE_M = 2            # Rescue-Prime state width
@@ -132,6 +135,8 @@ _ARGTYPES = {
     + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
     "seed_expand": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int],
     "fri_fold": [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_uint64] * 4
+    + [ctypes.c_void_p, ctypes.c_int],
+    "fri_fold_batched": [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_uint64] * 2
     + [ctypes.c_void_p, ctypes.c_int],
 }
 
@@ -450,6 +455,47 @@ def fri_fold(codeword: torch.Tensor, u: torch.Tensor, alpha: int):
     return folded, canon, u2
 
 
+def fold_batched_layout(codeword: torch.Tensor, u: torch.Tensor, alphas: torch.Tensor) -> int:
+    """h of a batched fold H7 takes: a contiguous int32 (B, 8, 2h) codeword,
+    a contiguous int32 (8, h) table, h >= 2, and contiguous int32 (B, 8, 1)
+    challenges, 1 <= B <= 65535.  Raises ValueError otherwise."""
+    if (codeword.dtype != torch.int32 or codeword.dim() != 3 or codeword.shape[1] != NLIMBS
+            or not codeword.is_contiguous()):
+        raise ValueError(f"fri_fold_batched: codeword must be a contiguous int32 (B, {NLIMBS}, 2h) "
+                         f"tensor; got {tuple(codeword.shape)} {codeword.dtype}")
+    batch = codeword.shape[0]
+    if not 1 <= batch <= 65535:
+        raise ValueError(f"fri_fold_batched: the kernel takes 1 <= B <= 65535 codewords; got {batch}")
+    if (alphas.dtype != torch.int32 or tuple(alphas.shape) != (batch, NLIMBS, 1)
+            or not alphas.is_contiguous()):
+        raise ValueError(f"fri_fold_batched: alphas must be a contiguous int32 ({batch}, {NLIMBS}, 1) "
+                         f"tensor; got {tuple(alphas.shape)} {alphas.dtype}")
+    return fold_layout(codeword[0], u)
+
+
+def fri_fold_batched(codeword: torch.Tensor, u: torch.Tensor, alphas: torch.Tensor):
+    """H7: one FRI fold round of B codewords.  ``codeword`` (B, 8, 2h) and
+    ``u`` (8, h), the shared inverse-domain table, in Montgomery form;
+    ``alphas`` (B, 8, 1) the proofs' challenges in Montgomery form.
+    Returns (folded, canon, u2): the folded codewords in Montgomery form
+    (B, 8, h) and in canonical form (B, 8, h), and the next round's table
+    u2_i = u_i^2, i < h/2."""
+    h = fold_batched_layout(codeword, u, alphas)
+    if all(x.device.type == "cpu" for x in (codeword, u, alphas)):
+        return fri_fold_batched_plain(codeword, u, alphas)
+    _check_cuda("fri_fold_batched", codeword, u, alphas)
+    batch = codeword.shape[0]
+    folded = torch.empty((batch, NLIMBS, h), dtype=torch.int32, device=u.device)
+    canon = torch.empty_like(folded)
+    u2 = torch.empty((NLIMBS, h // 2), dtype=torch.int32, device=u.device)
+    err = _entry("fri_fold_batched")(
+        folded.data_ptr(), canon.data_ptr(), u2.data_ptr(), codeword.data_ptr(), u.data_ptr(),
+        alphas.data_ptr(), batch, h, *mont_words(TWO_INV), *_stream(u),
+    )
+    _finish("fri_fold_batched", err)
+    return folded, canon, u2
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (any device, any broadcastable shapes)
 # ---------------------------------------------------------------------------
@@ -602,13 +648,13 @@ def ntt_plain(values: torch.Tensor, powers: torch.Tensor, n_inv: Optional[torch.
     return x
 
 
-def fri_fold_plain(codeword: torch.Tensor, u: torch.Tensor, alpha: int):
-    """Plain version of H6: the JAX package's _fold_kernel, _square_half
-    and the canonical form (a product with 1), over the plain field
-    functions."""
-    h = fold_layout(codeword, u)
-    a, b = codeword[:, :h], codeword[:, h:]
-    alpha_m = _limb_col(alpha % P * R % P, u.device).to(torch.int32)
+def _fold_plain(codeword: torch.Tensor, u: torch.Tensor, alpha_m: torch.Tensor):
+    """The fold of H6 and H7 over the plain field functions, in the JAX
+    package's order (_fold_kernel, _fold_kernel_batched), the canonical
+    form (a product with 1) and _square_half; ``alpha_m`` is (8, 1) or
+    (B, 8, 1) in Montgomery form."""
+    h = u.shape[-1]
+    a, b = codeword[..., :h], codeword[..., h:]
     two_inv = _limb_col(TWO_INV * R % P, u.device).to(torch.int32)
     d = mont_mul_plain(mont_mul_plain(alpha_m, u), sub_mod_plain(a, b))
     folded = mont_mul_plain(two_inv, add_mod_plain(add_mod_plain(a, b), d))
@@ -617,9 +663,21 @@ def fri_fold_plain(codeword: torch.Tensor, u: torch.Tensor, alpha: int):
     return folded, canon, u2
 
 
+def fri_fold_plain(codeword: torch.Tensor, u: torch.Tensor, alpha: int):
+    """Plain version of H6."""
+    fold_layout(codeword, u)
+    return _fold_plain(codeword, u, _limb_col(alpha % P * R % P, u.device).to(torch.int32))
+
+
+def fri_fold_batched_plain(codeword: torch.Tensor, u: torch.Tensor, alphas: torch.Tensor):
+    """Plain version of H7."""
+    fold_batched_layout(codeword, u, alphas)
+    return _fold_plain(codeword, u, alphas)
+
+
 PLAIN = {
     "mont_mul": mont_mul_plain, "mont_pow": mont_pow_plain,
     "add_mod": add_mod_plain, "sub_mod": sub_mod_plain,
     "rescue_perm": rescue_permutation_plain, "ntt": ntt_plain,
-    "fri_fold": fri_fold_plain,
+    "fri_fold": fri_fold_plain, "fri_fold_batched": fri_fold_batched_plain,
 }

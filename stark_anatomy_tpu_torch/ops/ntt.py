@@ -144,6 +144,68 @@ def coset_interpolate(values: torch.Tensor, offset: int) -> torch.Tensor:
     return ntt(values, inverse=True, scale_post=inv_tab)
 
 
+def poly_multiply(lhs: torch.Tensor, rhs: torch.Tensor, out_len: Optional[int] = None) -> torch.Tensor:
+    """Polynomial product by NTT, Hadamard product and inverse NTT.
+
+    lhs and rhs are coefficient tensors (..., NLIMBS, n); the result has
+    ``out_len`` coefficients (default: both lengths added, less one).  The
+    analog of the reference's fast_multiply (ntt.py:32-64)."""
+    la, lb = lhs.shape[-1], rhs.shape[-1]
+    if out_len is None:
+        out_len = la + lb - 1
+    order = 1
+    while order < la + lb - 1:
+        order *= 2
+    prod = intt(F.mont_mul(ntt(_pad_coeffs(lhs, order)), ntt(_pad_coeffs(rhs, order))))
+    return prod[..., :out_len]
+
+
+def coset_divide(lhs: torch.Tensor, rhs: torch.Tensor, offset: int, order: int,
+                 out_len: Optional[int] = None) -> torch.Tensor:
+    """Exact polynomial division by the Hadamard quotient on a coset (the
+    reference's fast_coset_divide, ntt.py:137-176): the coset avoids the
+    divisor's roots in <omega>.  A division with a remainder gives
+    garbage coefficients, as in the reference."""
+    dev = lhs.device
+    lc = ntt(_pad_coeffs(lhs, order), scale_pre=coset_table(offset, order, dev))
+    rc = ntt(_pad_coeffs(rhs, order), scale_pre=coset_table(offset, order, dev))
+    q = F.mont_mul(lc, F.batch_inv(rc))
+    coeffs = ntt(q, inverse=True, scale_post=coset_table(offset, order, dev, inverse=True))
+    return coeffs if out_len is None else coeffs[..., :out_len]
+
+
+def zerofier(points: torch.Tensor) -> torch.Tensor:
+    """Monic vanishing polynomial of a set of points by a product tree.
+
+    points: (NLIMBS, n) Montgomery form; returns (NLIMBS, n + 1)
+    coefficients.  Each level of the tree is one batched NTT product over
+    all sibling pairs (the analog of the reference's fast_zerofier,
+    ntt.py:66-80); n that is not a power of two is split into power-of-two
+    chunks whose zerofiers are multiplied."""
+    n = points.shape[-1]
+    assert n >= 1
+    acc = None
+    start = 0
+    while start < n:
+        size = 1 << ((n - start).bit_length() - 1)
+        chunk = _zerofier_pow2(points[:, start:start + size])
+        acc = chunk if acc is None else poly_multiply(acc, chunk)
+        start += size
+    return acc
+
+
+def _zerofier_pow2(points: torch.Tensor) -> torch.Tensor:
+    """Zerofier of 2^k points by a balanced product tree."""
+    n = points.shape[-1]
+    neg = F.neg(points).movedim(-1, 0).unsqueeze(-1)                      # (n, NLIMBS, 1)
+    ones = F.mont_one(1, (n,), points.device)
+    polys = torch.cat([neg, ones], dim=-1)                               # (n, NLIMBS, 2)
+    while polys.shape[0] > 1:
+        d = polys.shape[-1] - 1                                           # monic, degree d
+        polys = poly_multiply(polys[0::2], polys[1::2], out_len=2 * d + 1)
+    return polys[0]
+
+
 def evaluate_domain_horner(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Evaluate polynomials at arbitrary points (Horner over coefficients).
 

@@ -2,13 +2,18 @@
 device pipeline.
 
 The port of stark_anatomy_tpu/parallel/batch_prover.py.  FastRPSSS signs
-through it with B = 1.  The device phases run as (B, ...) tensors over the
-field kernels; the per-proof host work (Merkle roots, Fiat-Shamir
-challenges, transcript assembly) loops over the batch, and the stark's
-``timer`` records the JAX package's five phases (pipeline, commit,
-combination, fri, openings).  Ported: the host-FRI branch, taken while
-B*N <= HOST_FRI_MAX (a signature is B = 1, N = 4096).  The batched device
-FRI (``_fri_batch``) waits for the batch signing slice.
+through it with B = 1.  The device phases are parallel/batch.py's
+``pipeline`` and ``combination`` over (B, ...) tensors; the per-proof host
+work (Merkle roots, Fiat-Shamir challenges, transcript assembly) loops
+over the batch, and the stark's ``timer`` records the JAX package's five
+phases (pipeline, commit, combination, fri, openings).  FRI folds the
+whole batch on the device at every B, one H7 launch a round
+(field/kernels.py:fri_fold_batched), with one host tree (N1) per proof
+and round: the JAX package's host branch below B*N = 2^14 (HOST_FRI_MAX)
+is not ported, since the card's fold is faster than the host's at B = 1
+too (PERF.md, tools/port_fri_branch.py).  ``make_batch_rpsss`` signs a
+batch of documents at the production parameters (the JAX package's
+BASELINE config 5 is a batch of 64).
 """
 
 from __future__ import annotations
@@ -19,22 +24,21 @@ from typing import List, Sequence
 import torch
 
 from ..commit.merkle import MerkleTree, open_multi
-from ..field import ops as F
+from ..config import RPSSS_CONFIG
+from ..field import kernels as K
 from ..field.limbs import NLIMBS
 from ..field.scalar import Field, FieldElement
 from ..models import rescue_prime as RP
-from ..ops import ntt as NTT
 from ..ops.domain import mont_const
 from ..protocols.fast_stark import FastStark, TransitionZerofier
 from ..commit.device_merkle import gather_rows
-from ..utils.convert import canonical_np, device_from_ints, int_from_row
+from ..transcript.proof_stream import SignatureProofStream
+from ..utils.convert import canonical_np, device_from_ints, int_from_row, limb_rows_np
+from .batch import combination, pipeline
 
 
 class BatchProver:
     """Batched FastStark prover for the Rescue-Prime AIR."""
-
-    # below B*N total codeword elements, FRI runs entirely on the host
-    HOST_FRI_MAX = 1 << 14
 
     def __init__(
         self,
@@ -50,42 +54,7 @@ class BatchProver:
         # the symbolic AIR expansion (rhs**3, thousands of monomials) is
         # expensive: callers that already built it pass it in
         self.air = air if air is not None else rp.transition_constraints(stark.omicron)
-        self._air_eval = RP.make_air_evaluator(stark)
-        stark._interp_tables()
-
-    # ------------------------------------------------------------------
-    def _phase1_impl(self, sk_batch, randomizer_cols, rand_poly, inv_bz, interp):
-        """sk (L, B); randomizers (B, R, L, nrand); rand_poly (B, L, D+1);
-        inv_bz/interp (B, R, L, N) boundary tables.  The whole
-        pre-commitment pipeline: trace -> LDE -> AIR quotients -> boundary
-        quotients -> randomizer LDE."""
-        stark = self.stark
-        t = stark._interp_tables()
-        traces = RP.trace_batch(sk_batch)                  # (n_cyc, m, L, B)
-        cols = traces.permute(3, 1, 2, 0)                  # (B, R, L, n_cyc)
-        cols = torch.cat([cols, randomizer_cols], dim=-1)
-        trace_lde = stark._trace_lde(cols)                 # (B, R, L, N)
-        next_lde = torch.roll(trace_lde, -stark.expansion_factor, dims=-1)
-        constraint = self._air_eval(t["x_lde"], trace_lde, next_lde)
-        tq_lde = F.mont_mul(constraint, self.tz.inv_codeword)
-        rand_lde = NTT.coset_evaluate(rand_poly, stark.generator.value, stark.fri_domain_length)
-        bq_lde = F.mont_mul(F.sub(trace_lde, interp), inv_bz)
-        return bq_lde, tq_lde, rand_lde
-
-    def _phase2_impl(self, bq_lde, tq_lde, rand_lde, weights, tq_shift, bq_shift):
-        """weights: (B, W, L, 1).  Returns the combination codeword (B, L, N):
-        all W terms in the transcript's weight order (randomizer, then per
-        constraint [tq, shifted tq], then per register [bq, shifted bq])."""
-        tq_t = tq_lde.movedim(1, 0)                        # (C, B, L, N)
-        bq_t = bq_lde.movedim(1, 0)                        # (R, B, L, N)
-        sh_tq = F.mont_mul(tq_shift[:, None], tq_t)
-        sh_bq = F.mont_mul(bq_shift[:, None], bq_t)
-        terms = torch.cat([
-            rand_lde[None],
-            torch.stack([tq_t, sh_tq], dim=1).reshape((-1,) + tq_t.shape[1:]),
-            torch.stack([bq_t, sh_bq], dim=1).reshape((-1,) + bq_t.shape[1:]),
-        ])                                                 # (W, B, L, N)
-        return F.weighted_sum(terms, weights.movedim(1, 0))
+        self._air_constants = RP.rescue_air_tables(stark)
 
     # ------------------------------------------------------------------
     def prove_batch(
@@ -105,11 +74,6 @@ class BatchProver:
         R = stark.num_registers
         N = stark.fri_domain_length
         nrand = stark.num_randomizers
-        if B * N > self.HOST_FRI_MAX:
-            raise NotImplementedError(
-                "batched device FRI (stark_anatomy_tpu/parallel/batch_prover.py:"
-                "_fri_batch) is not ported yet"
-            )
 
         boundaries = [rp.boundary_constraints(rp.hash(inp)) for inp in inputs]
         sk_dev = device_from_ints([inp.value for inp in inputs], dev)
@@ -130,8 +94,9 @@ class BatchProver:
         # the card without a synchronisation of its own
         timer = stark.timer
         with timer.phase("pipeline"):
-            bq_lde, tq_lde, rand_lde = self._phase1_impl(
-                sk_dev, rand_rows, rand_poly, inv_bz, interp
+            bq_lde, tq_lde, rand_lde = pipeline(
+                stark, self._air_constants, sk_dev, rand_rows, rand_poly, inv_bz, interp,
+                self.tz.inv_codeword,
             )
             bq_np = canonical_np(bq_lde)                   # (B, R, N, L)
             rand_np = canonical_np(rand_lde)               # (B, N, L)
@@ -161,15 +126,10 @@ class BatchProver:
             )
             tq_shift = torch.stack([stark._x_lde_pow(max_degree - b) for b in tq_bounds])
             bq_shift = torch.stack([stark._x_lde_pow(max_degree - b) for b in bq_bounds])
-            combos = self._phase2_impl(bq_lde, tq_lde, rand_lde, weights, tq_shift, bq_shift)
+            combos = combination(bq_lde, tq_lde, rand_lde, weights, tq_shift, bq_shift)
 
-        # FRI on the host: one transfer of the combination codewords
         with timer.phase("fri"):
-            combo_np = canonical_np(combos)                # (B, N, L)
-            indices_per_proof = []
-            for i in range(B):
-                ints = [int_from_row(combo_np[i][j]) for j in range(N)]
-                indices_per_proof.append(stark.fri.prove_host(ints, proof_streams[i]))
+            indices_per_proof = self._fri_batch(combos, proof_streams)
 
         # linked openings per proof (paired leaves: multiproof over the
         # reduced index set, values at the full quadrupled set)
@@ -190,3 +150,75 @@ class BatchProver:
                 ps.push(open_multi(self.tz.tree, leaf_indices))
                 proofs.append(ps.serialize())
         return proofs
+
+    # ------------------------------------------------------------------
+    def _fri_batch(self, codewords: torch.Tensor, proof_streams: List) -> List[List[int]]:
+        """Batched FRI prove over (B, L, N) Montgomery codewords (the JAX
+        package's _fri_batch), byte for byte the transcripts of
+        ``Fri.prove_host``.  A round copies the canonical layer (B, n, L)
+        to the host once, builds one paired-leaf tree per proof (N1),
+        draws the B challenges and folds the batch in one H7 launch, whose
+        canonical output is the next round's layer.  Then, per proof, the
+        last layer in the clear, the index draw and the query rounds.
+        Returns each proof's top-level indices."""
+        fri = self.stark.fri
+        B = codewords.shape[0]
+        dev = codewords.device
+        u = fri._initial_u(dev)
+        codeword = codewords.contiguous()
+        layers = [canonical_np(codeword)]                  # per round (B, n, L)
+        trees: List[List[MerkleTree]] = [[] for _ in range(B)]
+        num = fri.num_rounds()
+        for r in range(num):
+            for i in range(B):
+                tree = MerkleTree.from_limbs_paired(layers[-1][i])
+                trees[i].append(tree)
+                proof_streams[i].push(tree.root)
+            if r == num - 1:
+                break
+            alphas = [self.field.sample(ps.prover_fiat_shamir()).value for ps in proof_streams]
+            alpha_dev = device_from_ints(alphas, dev).t().contiguous().unsqueeze(-1)  # (B, L, 1)
+            codeword, canon, u = K.fri_fold_batched(codeword, u, alpha_dev)
+            layers.append(limb_rows_np(canon))
+
+        indices_per_proof = []
+        for i in range(B):
+            ps = proof_streams[i]
+            ps.push([int_from_row(row) for row in layers[-1][i]])
+            top = fri.sample_indices(
+                ps.prover_fiat_shamir(),
+                layers[0].shape[1] // 2,
+                layers[-1].shape[1],
+                fri.num_colinearity_tests,
+            )
+            indices = list(top)
+            for rr in range(len(layers) - 1):
+                half = layers[rr].shape[1] // 2
+                indices = [idx % half for idx in indices]
+                fri.query(layers[rr][i], trees[i][rr], indices, ps)
+            indices_per_proof.append(top)
+        return indices_per_proof
+
+
+def make_batch_rpsss(device=None, urandom=os.urandom):
+    """A batch signer at FastRPSSS's production parameters (the JAX
+    package's make_batch_rpsss): returns (prover, keygen, sign_batch).
+    ``sign_batch(sks, documents)`` returns one signature per document, each
+    of which verifies under ``FastRPSSS.verify`` with its own pk.  It runs
+    on the CUDA card unless ``device="cpu"``; randomness comes from
+    ``urandom``."""
+    field = Field.main()
+    rp = RP.RescuePrime()
+    stark = FastStark.from_config(RPSSS_CONFIG, field, device=device)
+    tz = stark.preprocess()
+    prover = BatchProver(stark, rp, tz)
+
+    def keygen():
+        sk = field.sample(urandom(17))
+        return sk, rp.hash(sk)
+
+    def sign_batch(sks: Sequence[FieldElement], documents: Sequence[bytes]) -> List[bytes]:
+        streams = [SignatureProofStream(doc) for doc in documents]
+        return prover.prove_batch(list(sks), streams, urandom=urandom)
+
+    return prover, keygen, sign_batch

@@ -47,7 +47,6 @@ from ..commit.device_merkle import (
     use_device_commit,
 )
 from ..commit.merkle import MerkleTree, open_multi, verify_multi
-from ..config import resolve_device
 from ..errors import MalformedProof, VerificationError, rejects_malformed
 from ..field import ops as F
 from ..field.limbs import NLIMBS
@@ -86,9 +85,8 @@ class FastStark(StarkParams):
     # tests lower it to cover the bulk branch (the JAX package's knob)
     bulk_randomizer_threshold: int = 4096
 
-    def __init__(self, *args, device=None, **kwargs):
+    def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        self.device = resolve_device(device)
         self._interp_cache = None
         self._bz_cache: Dict[tuple, tuple] = {}
         self._xpow_cache: Dict[int, torch.Tensor] = {}

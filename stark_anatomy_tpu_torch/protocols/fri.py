@@ -107,6 +107,14 @@ class Fri:
                 reduced_indices.append(reduced)
         return indices
 
+    def eval_domain(self) -> List[int]:
+        """The FRI domain offset * omega^i, i < N, as host ints."""
+        out, x = [], self.offset
+        for _ in range(self.domain_length):
+            out.append(x)
+            x = x * self.omega % P
+        return out
+
     @staticmethod
     def _layer_len(layer) -> int:
         return len(layer) if isinstance(layer, list) else layer.shape[0]

@@ -44,8 +44,14 @@ def canonical_np(arr: torch.Tensor) -> np.ndarray:
     """Montgomery tensor (..., NLIMBS, n) -> canonical ELEMENT-MAJOR numpy
     limb array (..., n, NLIMBS) uint32: the row-per-element layout the
     Merkle leaves hash."""
-    canon = F.from_mont(arr).cpu().numpy().astype(np.uint32)
-    return np.ascontiguousarray(np.moveaxis(canon, -2, -1))
+    return limb_rows_np(F.from_mont(arr))
+
+
+def limb_rows_np(canon: torch.Tensor) -> np.ndarray:
+    """Canonical limb tensor (..., NLIMBS, n) -> element-major numpy rows
+    (..., n, NLIMBS) uint32, as ``canonical_np`` gives them."""
+    rows = canon.cpu().numpy().astype(np.uint32)
+    return np.ascontiguousarray(np.moveaxis(rows, -2, -1))
 
 
 def int_from_row(row: np.ndarray) -> int:

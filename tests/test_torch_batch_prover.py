@@ -1,0 +1,149 @@
+"""Batch signing: the port's BatchProver against the JAX package's.
+
+A seeded batch of B = 3 proofs at ``FastStark(FIELD, 4, 2, 4, rp.m,
+rp.N + 1)`` (FRI domain 512, six FRI rounds).  The port always takes the
+batched FRI (``_fri_batch``: one batched fold a round, H7's plain version
+here); the JAX package takes it above B*N = HOST_FRI_MAX, so the fixture
+sets ``HOST_FRI_MAX = 0`` on the JAX instance.  The JAX package draws its
+randomness from ``os.urandom``, which the fixture replaces with a
+counter-mode stream (monkeypatch); the port takes the same stream as
+``urandom=``.  The proofs are byte-identical, each package verifies the
+other's, a proof is rejected under another document, and the batched FRI
+writes the transcripts of ``Fri.prove_host`` on the same codewords.
+"""
+
+import hashlib
+import os
+import random
+
+import pytest
+import torch
+
+from stark_anatomy_tpu.field.scalar import Field
+from stark_anatomy_tpu.models.rescue_prime import RescuePrime as JaxRescuePrime
+from stark_anatomy_tpu.parallel.batch_prover import BatchProver as JaxBatchProver
+from stark_anatomy_tpu.protocols.fast_stark import FastStark as JaxFastStark
+from stark_anatomy_tpu.transcript.proof_stream import SignatureProofStream as JaxSPS
+from stark_anatomy_tpu_torch.field.scalar import P
+from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime
+from stark_anatomy_tpu_torch.parallel.batch_prover import BatchProver
+from stark_anatomy_tpu_torch.protocols.fast_stark import FastStark
+from stark_anatomy_tpu_torch.transcript.proof_stream import SignatureProofStream
+from stark_anatomy_tpu_torch.utils.convert import device_from_ints
+
+torch.set_num_threads(1)
+
+FIELD = Field.main()
+B = 3
+DOCS = [b"batch doc %d" % i for i in range(B)]
+SEED = b"batch prover"
+
+
+def det_urandom(seed: bytes):
+    """Deterministic os.urandom stand-in (counter-mode blake2b stream)."""
+    state = {"ctr": 0}
+
+    def rand(n: int) -> bytes:
+        out = b""
+        while len(out) < n:
+            out += hashlib.blake2b(seed + state["ctr"].to_bytes(8, "big")).digest()
+            state["ctr"] += 1
+        return out[:n]
+
+    return rand
+
+
+def inputs():
+    return [FIELD.sample(bytes([7, i])) for i in range(B)]
+
+
+@pytest.fixture(scope="module")
+def jax_batch():
+    """(stark, tz, air, proofs) of the JAX package's forced batched branch."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("STARK_TPU_AOT", "0")
+        rp = JaxRescuePrime()
+        stark = JaxFastStark(FIELD, 4, 2, 4, rp.m, rp.N + 1, transition_constraints_degree=3)
+        tz = stark.preprocess()
+        prover = JaxBatchProver(stark, rp, tz)
+        prover.HOST_FRI_MAX = 0
+        mp.setattr(os, "urandom", det_urandom(SEED))
+        proofs = prover.prove_batch(inputs(), [JaxSPS(d) for d in DOCS])
+        return stark, tz, prover.air, proofs
+
+
+@pytest.fixture(scope="module")
+def port_prover():
+    rp = RescuePrime()
+    stark = FastStark(FIELD, 4, 2, 4, rp.m, rp.N + 1, transition_constraints_degree=3, device="cpu")
+    return BatchProver(stark, rp, stark.preprocess())
+
+
+@pytest.fixture(scope="module")
+def port_proofs(port_prover):
+    return port_prover.prove_batch(inputs(), [SignatureProofStream(d) for d in DOCS],
+                                   urandom=det_urandom(SEED))
+
+
+def boundaries():
+    rp = RescuePrime()
+    return [rp.boundary_constraints(rp.hash(x)) for x in inputs()]
+
+
+def test_batched_fri_proofs_are_byte_identical_to_jax(jax_batch, port_proofs):
+    _, _, _, jproofs = jax_batch
+    assert len(port_proofs) == B
+    assert port_proofs == jproofs
+
+
+def test_each_package_verifies_the_others_batch(jax_batch, port_prover, port_proofs, monkeypatch):
+    monkeypatch.setenv("STARK_TPU_AOT", "0")
+    jstark, jtz, jair, jproofs = jax_batch
+    stark, tz = port_prover.stark, port_prover.tz
+    assert tz.root == jtz.root
+    for i, boundary in enumerate(boundaries()):
+        def port_stream(pr, d=DOCS[i]):
+            return SignatureProofStream.deserialize_with_document(pr, d)
+
+        def jax_stream(pr, d=DOCS[i]):
+            return JaxSPS.deserialize_with_document(pr, d)
+
+        assert stark.verify(port_proofs[i], port_prover.air, boundary, tz.root,
+                            proof_stream_factory=port_stream), stark.last_rejection
+        assert stark.verify(jproofs[i], port_prover.air, boundary, tz.root,
+                            proof_stream_factory=port_stream), stark.last_rejection
+        assert jstark.verify(port_proofs[i], jair, boundary, jtz.root,
+                             proof_stream_factory=jax_stream)
+
+
+def test_a_proof_is_rejected_under_another_document(port_prover, port_proofs):
+    stark, tz = port_prover.stark, port_prover.tz
+    for i, boundary in enumerate(boundaries()):
+        assert not stark.verify(
+            port_proofs[i], port_prover.air, boundary, tz.root,
+            proof_stream_factory=lambda pr: SignatureProofStream.deserialize_with_document(pr, b"other"),
+        )
+        assert stark.last_rejection
+    # a proof under another proof's statement
+    assert not stark.verify(
+        port_proofs[0], port_prover.air, boundaries()[1], tz.root,
+        proof_stream_factory=lambda pr: SignatureProofStream.deserialize_with_document(pr, DOCS[0]),
+    )
+
+
+def test_batched_fri_writes_the_transcripts_of_prove_host(port_prover):
+    """``_fri_batch`` over a batch of codewords against ``Fri.prove_host``
+    (the JAX package's branch at B*N <= 2^14) on each codeword alone: the
+    same transcript bytes and the same top-level indices."""
+    stark = port_prover.stark
+    N = stark.fri_domain_length
+    rng = random.Random(10)
+    vals = [[rng.randrange(P) for _ in range(N)] for _ in range(B)]
+    vals[0][:3] = [0, 1, P - 1]
+    codewords = torch.stack([device_from_ints(v, "cpu") for v in vals])
+    streams = [SignatureProofStream(d) for d in DOCS]
+    indices = port_prover._fri_batch(codewords, streams)
+    for i in range(B):
+        host = SignatureProofStream(DOCS[i])
+        assert stark.fri.prove_host(vals[i], host) == indices[i]
+        assert host.serialize() == streams[i].serialize(), i
