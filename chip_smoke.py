@@ -19,15 +19,15 @@ Phases (each prints its wall seconds):
    product alone); H2 ``rescue_perm`` (trace and hash) for B = 1, 7 and
    4096, random and special states, and the Rescue known-answer vectors.
    The special values are 0, 1, p - 1, p - 2 (its low words are all
-   ones, which stresses the carries) and R mod p.  H3 ``ntt`` for n = 1,
-   2, 1024, 4096 and 8192, batch 1, 2 and 3, forward and inverse, with
-   and without scales; H4 ``merkle`` (the blake2s Merkle tree) for
-   n = 4, 64 and 4096, one codeword and two, and N1 against hashlib at
-   n = 4096;
+   ones, which stresses the carries) and R mod p.  H3 ``ntt`` for every
+   n = 2^0 .. 2^13, batch 1, 2 and 3 (its cluster path from n = 1024
+   up), forward and inverse, with and without scales; H4 ``merkle`` (the
+   blake2s Merkle tree) for n = 4, 64 and 4096, 1, 2 and 7 codewords in
+   one launch, and N1 against hashlib at n = 4096;
    then each kernel's time per launch (CUDA events) and device time
    (profiler) beside the plain version's time on the card and the bound,
    and the same for the ladder and ``mont_mul`` at each ladder shape; H4's
-   time per commit, and N1's and hashlib's per tree;
+   time per commit (one launch a commit), and N1's and hashlib's per tree;
 2. main path: ``FastRPSSS()`` keygen, sign and verify on the card at the
    production parameters; verify must accept, and reject a forged
    document and another key's pk; every kernel must be launched in that
@@ -52,7 +52,12 @@ Phases (each prints its wall seconds):
 5. the large-trace path: H5 ``seed_expand`` against its plain version on
    the card at 2^16 + 1 elements and at the 2^20 path's 2^22 (a seed whose
    round 0 rejects candidates), H6 ``fri_fold`` at the top round's
-   h = 2^23; the four-step NTT against H3's one-block path at n = 8192
+   h = 2^23; H4 at every FRI layer of that path, 2^24 down to 2^15,
+   against its plain version on the card and N1's root, with its device
+   time per commit and bound; H3's persistent path at the four-step's
+   inner shapes (4096, 8, 4096) and (2048, 8, 2048), with the twiddle
+   post-scale and without, 16 seeded rows against the plain transform,
+   with device time per launch and bound; the four-step NTT against H3's single-launch path at n = 8192
    (threshold lowered), against the plain transform at 2^16, and at 2^22
    and 2^24 by the forward/inverse round trip and spot values of a sparse
    polynomial computed on the host; a seeded MiMC proof at
@@ -141,9 +146,10 @@ PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
                 "merkle": "merkle_kernel", "seed_expand": "seed_expand_kernel",
                 "fri_fold": "fri_fold_kernel", "fri_fold_batched": "fri_fold_batched_kernel"}
 RESCUE_BATCHES = (1, 7, 4096)
-NTT_SIZES = (1, 2, 1024, 4096, 8192)
+NTT_SIZES = tuple(1 << k for k in range(14))   # every n H3 takes: its cluster path from 1024 up
 NTT_MAIN = (2, 8, 4096)          # the LDE: coset_evaluate of two trace columns
 TREE_SIZES = (4, 64, 4096)
+TREE_BATCHES = (1, 2, 7)         # codewords of one launch at the main path's size
 TREE_MAIN = (8, 4096)            # one FRI-domain codeword: a commitment of the main path
 TREE_LARGE = 1 << 22             # the large-trace path's codeword (bench.py:229-236)
 PHASES = ("pipeline", "commit", "combination", "fri", "openings")
@@ -154,6 +160,12 @@ LARGE_KERNELS = ("merkle", "seed_expand", "fri_fold")    # launched on that path
 EXPAND_COUNTS = ((1 << 16) + 1, 1 << 22)    # 2^22: that path's randomizer coefficients
 FOLD_HALF = 1 << 23                         # its top FRI round
 NTT_LARGE = (22, 24)                        # log2 of its transforms: the trace iNTT, the LDEs
+# H3's shapes inside those four-step transforms: n1 rows of n2 points
+# (the first pass with the twiddles as its post-scale, the second without)
+NTT_INNER = ((4096, 8, 4096), (2048, 8, 2048))
+NTT_PAIRED = (32, 8, 8192)                  # the persistent path's two-block instance (more than 16 rows at 8192)
+NTT_SPOT_ROWS = 16                          # rows of an inner launch held against the plain transform
+FRI_TREE_LOGS = range(15, 25)               # the FRI layers of that path the card commits: 2^24 down to 2^15
 TREE_PATH = 1 << 24                         # its largest tree: the quotients', FRI's first layer
 FOLD_BYTES = 176    # per folded element: c_i, c_{i+h}, u_i read; folded, canon, u_i^2 / 2 written
 # batch signing: the JAX package's BASELINE config 5 signs a batch of 64
@@ -459,6 +471,8 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
     import torch
 
     from stark_anatomy_tpu_torch.commit import kernels as MK
+    from stark_anatomy_tpu_torch.commit.device_merkle import device_commit_paired
+    from stark_anatomy_tpu_torch.commit.merkle import MerkleTree
     from stark_anatomy_tpu_torch.field import kernels as K
     from stark_anatomy_tpu_torch.field.scalar import Field, FieldElement, P
     from stark_anatomy_tpu_torch.models import mimc as MM
@@ -466,7 +480,7 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
     from stark_anatomy_tpu_torch.ops.domain import DOMAINS
     from stark_anatomy_tpu_torch.parallel.pipeline_prover import PipelinedMiMCProver
     from stark_anatomy_tpu_torch.protocols.fri import Fri
-    from stark_anatomy_tpu_torch.utils.convert import device_from_ints, ints_from_device
+    from stark_anatomy_tpu_torch.utils.convert import canonical_np, device_from_ints, ints_from_device
 
     def record(name, ms, plain_ms, bound):
         return kernel_record(name, worst_err[name], ms, plain_ms, bound)
@@ -513,27 +527,60 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
     print(f"  fri_fold h=2^{FOLD_HALF.bit_length() - 1}: {ms:.6f} ms/launch, device {fmt_us(dev_us)}/launch, plain "
           f"{plain_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}: {FOLD_BYTES} bytes per element)")
     del cw, u
-    # H4 against its plain version at the path's largest codeword (the
-    # boundary quotient's, the randomizer's, FRI's first layer) and at FRI's
-    # second layer; the largest gives its record, in place of phase 1's
-    for n, tree_seed in ((TREE_PATH // 2, 3041), (TREE_PATH, 3040)):
-        canon = random_codeword((8, n), tree_seed, dev)
+    # H4 at every FRI layer the path commits on the card (2^24, its largest
+    # codeword, down to 2^15): the flat tree against the plain version on
+    # the card, the root against N1's tree of the same canonical rows; the
+    # largest gives its record, in place of phase 1's
+    for log_n in FRI_TREE_LOGS:
+        n = 1 << log_n
+        cw = random_codeword((8, n), 3040 + log_n, dev)
+        rows, dtree = device_commit_paired(cw)
         want = []
-        plain_ms = time_launches(lambda: want.append(MK.merkle_paired_plain(canon)), 1, warm=0)
-        compare("merkle", f"(8, 2^{n.bit_length() - 1})", MK.merkle_paired(canon), want[0])
+        plain_ms = time_launches(lambda: want.append(MK.merkle_paired_plain(rows.canon)), 1, warm=0)
+        compare("merkle", f"(8, 2^{log_n}) against plain", dtree.flat, want[0])
         del want
-    passes = len(MK.tree_passes(TREE_PATH))
-    ms = time_launches(lambda: MK.merkle_paired(canon), 10)
-    per_launch = profile_kernel("merkle", lambda: MK.merkle_paired(canon), 5)
-    bound = merkle_bound(TREE_PATH, 1)
-    records["merkle"] = record("merkle", ms, plain_ms, bound)
-    print(f"  merkle (8, 2^{TREE_PATH.bit_length() - 1}): {ms:.6f} ms/commit ({passes} launches), device "
-          f"{fmt_us(None if per_launch is None else per_launch * passes)}/commit, plain "
-          f"{plain_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
-    del canon
+        assert dtree.root == MerkleTree.from_limbs_paired(canonical_np(cw)).root, \
+            f"H4's root at 2^{log_n} differs from N1's"
+        canon = rows.canon
+        dev_us = profile_kernel("merkle", lambda: MK.merkle_paired(canon), 5)
+        bound = merkle_bound(n, 1)
+        line = (f"  merkle (8, 2^{log_n}): root equals N1's; device {fmt_us(dev_us)}/commit "
+                f"(1 launch, {len(MK.tree_stages(n))} stages), bound {bound[0]:.6f} ms ({bound[1]})")
+        if n == TREE_PATH:
+            ms = time_launches(lambda: MK.merkle_paired(canon), 10)
+            records["merkle"] = record("merkle", ms, plain_ms, bound)
+            line += f", {ms:.6f} ms/commit (CUDA events), plain {plain_ms:.3f} ms"
+        print(line)
+        del cw, rows, dtree, canon
+    assert not any(bool(c.any()) for c in MK._COUNTERS.values()), "H4 left a ticket counted"
     torch.cuda.empty_cache()
 
-    # the four-step NTT: against H3's one-block path at 8192 with the
+    # H3's persistent path at the four-step's inner shapes, and its
+    # two-block instance at 8192: NTT_SPOT_ROWS seeded rows of each launch
+    # against the plain transform on the card, with the twiddle post-scale
+    # (a row each) and without.  Bound: the input, the output and the
+    # post-scale rows once, the butterflies and a product a point for the
+    # scale.
+    for batch, _, n in NTT_INNER + (NTT_PAIRED,):
+        x, post = (random_codeword((batch, 8, n), 3150 + n + k, dev) for k in range(2))
+        dom = DOMAINS.get(n, dev)
+        rows = sorted(random.Random(3160 + n).sample(range(batch), NTT_SPOT_ROWS))
+        plan = K.ntt_plan(batch, n.bit_length() - 1, torch.cuda.get_device_properties(dev).multi_processor_count)
+        for scaled in (True, False):
+            args = (dom["fwd_powers"], None, None, post if scaled else None)
+            got = K.ntt(x, *args)
+            want = K.ntt_plain(x[rows], args[0], None, None, post[rows] if scaled else None)
+            compare("ntt", f"({batch}, 8, {n}){' post-scaled' if scaled else ''}, {NTT_SPOT_ROWS} rows "
+                    f"against plain ({plan[0]} path, {plan[1]} blocks a row)", got[rows], want)
+            dev_us = profile_kernel("ntt", lambda: K.ntt(x, *args), 10)
+            nbytes = (2 + scaled) * batch * n * 32 + n * 16
+            bound = bound_ms(1, nbytes, ntt_ops(batch, n, int(scaled), False))
+            print(f"  ntt ({batch}, 8, {n}){' post-scaled' if scaled else ''}: device {fmt_us(dev_us)}/launch "
+                  f"(1 launch), bound {bound[0]:.6f} ms ({bound[1]})")
+        del x, post, got, want
+    torch.cuda.empty_cache()
+
+    # the four-step NTT: against H3's single-launch path at 8192 with the
     # threshold lowered, against the plain transform at 2^16, and at 2^22
     # and 2^24 by the round trip and host-computed spot values
     for batch in (1, 2):
@@ -548,7 +595,7 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
                 NTT.NTT_MAX = saved
             torch.cuda.synchronize()
             compare("ntt", f"four-step n=8192 batch={batch} {'inverse' if inverse else 'forward'} "
-                    f"scaled, threshold 64, against one block", got, want)
+                    f"scaled, threshold 64, against one launch", got, want)
     n = 1 << 16
     x, pre = random_codeword((8, n), 3120, dev), random_codeword((8, n), 3121, dev)
     for inverse in (False, True):
@@ -1005,7 +1052,9 @@ def main() -> int:
             compare("rescue_perm", f"trace B={batch} {label}", got_trace, want)
             compare("rescue_perm", f"hash B={batch} {label}", got_hash, want[-1])
     # H3 against the plain transform on CPU copies: a scale on the input
-    # shared by the batch, one on the output per row
+    # shared by the batch, one on the output per row; every n, batches 1-3
+    # (the cluster path from n = 1024 up, one block a row below it)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for i, n in enumerate(NTT_SIZES):
         for batch in (1, 2, 3):
             x_cpu, post_cpu = field_inputs((batch, 8, n), 600 + 10 * i + batch)
@@ -1020,13 +1069,15 @@ def main() -> int:
                     got = K.ntt(x_cpu.to(dev), *tabs, *scales)
                     torch.cuda.synchronize()
                     want = K.ntt_plain(x_cpu, *tabs_cpu, *scales_cpu)
-                    label = f"n={n} batch={batch} {'inverse' if inverse else 'forward'}{' scaled' if scaled else ''}"
+                    path = K.ntt_plan(batch, n.bit_length() - 1, sms)[0]
+                    label = (f"n={n} batch={batch} {'inverse' if inverse else 'forward'}"
+                             f"{' scaled' if scaled else ''} ({path} path)")
                     compare("ntt", label, got, want)
     # H4 against its plain version on CPU copies of the same canonical
     # limbs (random values with the special ones first), one codeword and
     # two in one launch set
     for i, n in enumerate(TREE_SIZES):
-        for batch in (1, 2):
+        for batch in TREE_BATCHES:
             canon_cpu = field_inputs((batch, 8, n), 1000 + 10 * i + batch)[0]
             got = MK.merkle_paired(canon_cpu.to(dev))
             torch.cuda.synchronize()
@@ -1134,20 +1185,19 @@ def main() -> int:
         if shape == NTT_MAIN and not inverse:
             records["ntt"] = record("ntt", ms, plain_ms, bound)
 
-    # H4 per commit (all its passes) at the main path's codeword, one and
-    # two codewords; the record is one codeword.  N1 and hashlib per tree
-    # of the same size and of 2^16 elements, on the host.
-    for batch in (1, 2):
+    # H4 per commit (one launch: every stage of the tree, tree_stages) at
+    # the main path's codeword, for 1, 2 and 7 codewords; the record is one
+    # codeword.  N1 and hashlib per tree of the same size and of 2^16
+    # elements, on the host.
+    for batch in TREE_BATCHES:
         shape = (batch,) + TREE_MAIN if batch > 1 else TREE_MAIN
         canon = field_inputs(shape, 1200 + batch)[0].to(dev)
         n = shape[-1]
-        passes = len(MK.tree_passes(n))
         bound = merkle_bound(n, batch)
         ms = time_launches(lambda: MK.merkle_paired(canon), 200)
-        per_launch = profile_kernel("merkle", lambda: MK.merkle_paired(canon), 50)
-        dev_us = None if per_launch is None else per_launch * passes
+        dev_us = profile_kernel("merkle", lambda: MK.merkle_paired(canon), 50)
         plain_ms = time_launches(lambda: MK.merkle_paired_plain(canon), 1, warm=1)
-        print(f"  merkle {shape}: {ms:.6f} ms/commit ({passes} launches), device "
+        print(f"  merkle {shape}: {ms:.6f} ms/commit (1 launch, {len(MK.tree_stages(n))} stages), device "
               f"{fmt_us(dev_us)}/commit, plain {plain_ms:.3f} ms, bound {bound[0]:.9f} ms "
               f"({bound[1]}; {BLAKE2S_INSTR} instructions per node at {INSTR_PER_S:.4g}/s)")
         if batch == 1:
@@ -1302,13 +1352,11 @@ def main() -> int:
                                     for i in idx[:4]]
     print(f"H4 at n = 2^22: root, levels 0-2 and a 64-index multiproof equal N1's")
     canon = rows.canon
-    passes = len(MK.tree_passes(TREE_LARGE))
     ms = time_launches(lambda: MK.merkle_paired(canon), 10)
-    per_launch = profile_kernel("merkle", lambda: MK.merkle_paired(canon), 5)
-    dev_us = None if per_launch is None else per_launch * passes
+    dev_us = profile_kernel("merkle", lambda: MK.merkle_paired(canon), 5)
     bound = merkle_bound(TREE_LARGE, 1)
     n1_ms = host_ms(lambda: MerkleTree.from_limbs_paired(canonical_np(cw)), 3)
-    print(f"  merkle (8, {TREE_LARGE}): {ms:.6f} ms/commit ({passes} launches), device "
+    print(f"  merkle (8, {TREE_LARGE}): {ms:.6f} ms/commit (1 launch), device "
           f"{fmt_us(dev_us)}/commit, bound {bound[0]:.6f} ms ({bound[1]}); N1 with the copy to "
           f"the host {n1_ms:.3f} ms (median of 3; first {1e3 * n1_first_s:.3f} ms) on {smi}")
     phase("4 H4 at 2^22", t4)

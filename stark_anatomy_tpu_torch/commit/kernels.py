@@ -6,7 +6,7 @@ blake2s graphs K11 (stark_anatomy_tpu/commit/device_merkle.py:
 _compress_words, _paired_leaf_digests, _parent_level, _flat_tree_core).
 The source's header says what bounds it and how the design answers it.
 field/kernels.py builds and loads it with the field kernels and counts
-its launches under "merkle", one per pass.
+its launches under "merkle", one per tree (or per set of R trees).
 
 The wrapper takes canonical limbs (..., 8, n), int32 lanes holding 16-bit
 limbs, n a power of two >= 2, and returns the flat tree (..., 8, n) of
@@ -25,7 +25,7 @@ with rejection sampling.  Its launches count under "seed_expand".
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -33,7 +33,10 @@ from ..field import kernels as K
 from ..field.limbs import NLIMBS, R
 from ..field.scalar import P
 
-TREE_LEVELS = 8          # levels one H4 pass reduces: log2 of its 256-thread block
+TREE_THREADS = 256       # nodes one H4 block takes at a stage
+STAGE_LEVELS = 3         # levels a wide stage reduces (each block 256 nodes to 32, in full warps)
+WIDE_STAGE = 2048        # a stage from more nodes than this (more than 8 blocks) is wide
+TREE_LEVELS = 8          # levels a narrower stage of more than TREE_THREADS nodes reduces
 MAX_BATCH = 65535        # codewords per launch: the grid's y axis
 MASK32 = 0xFFFFFFFF
 
@@ -66,26 +69,59 @@ def tree_layout(canon: torch.Tensor) -> Tuple[int, int]:
     return math.prod(canon.shape[:-2]), n
 
 
-def tree_passes(n: int) -> List[Tuple[int, int, int]]:
-    """The H4 launches of a tree over n elements: (width, in_off, levels)
-    per pass, the first hashing the n/2 leaves.  Each pass starts from the
-    level of ``width`` nodes at flat column ``in_off`` and reduces up to
-    TREE_LEVELS levels above it."""
-    half = n // 2
-    depth = half.bit_length() - 1
-    passes, done = [], 0
-    while True:
-        levels = min(TREE_LEVELS, depth - done)
-        passes.append((half >> done, 2 * half - (2 * half >> done), levels))
-        done += levels
-        if done == depth:
-            return passes
+def tree_stages(n: int) -> List[Tuple[int, int, int]]:
+    """The stages of H4's one launch over a tree of n elements: (width,
+    in_off, levels) each, the first hashing the n/2 leaves.  A stage starts
+    from the level of ``width`` nodes at flat column ``in_off``, each block
+    taking TREE_THREADS of them: a wide stage (more than WIDE_STAGE nodes)
+    reduces STAGE_LEVELS levels, each block 256 nodes to 32 in full warps;
+    a narrower one TREE_LEVELS, each block 256 nodes to 1; the stage that
+    starts from TREE_THREADS nodes or fewer takes them to the root in one
+    block.  Every block of a stage after the first is the last block to
+    finish of the group of 2^levels blocks of the stage before whose
+    outputs it takes."""
+    stages, width, off = [], n // 2, 0
+    while width > TREE_THREADS:
+        levels = STAGE_LEVELS if width > WIDE_STAGE else TREE_LEVELS
+        stages.append((width, off, levels))
+        for _ in range(levels):
+            off += width
+            width //= 2
+    stages.append((width, off, width.bit_length() - 1))
+    return stages
+
+
+def stage_blocks(width: int) -> int:
+    """Blocks of a stage that starts from ``width`` nodes."""
+    return max(1, width // TREE_THREADS)
+
+
+def tree_counters(n: int) -> int:
+    """Tickets of one tree: a counter for each block of each stage after
+    the first (the group of blocks it takes over counts into it)."""
+    return sum(stage_blocks(width) for width, _, _ in tree_stages(n)[1:])
+
+
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def ticket_counters(canon: torch.Tensor, size: int) -> torch.Tensor:
+    """At least ``size`` zeroed H4 ticket counters for launches on the
+    current stream of ``canon``'s device.  They are allocated once per
+    device and stream (again when a larger set is needed) and kept: every
+    H4 launch leaves its counters zeroed, so a commit launches only H4."""
+    stream, device = K._stream(canon)
+    key = (device, stream)
+    counters = _COUNTERS.get(key)
+    if counters is None or counters.numel() < size:
+        counters = torch.zeros(size, dtype=torch.int32, device=canon.device)
+        _COUNTERS[key] = counters
+    return counters
 
 
 def merkle_paired(canon: torch.Tensor) -> torch.Tensor:
     """H4: the flat paired-leaf blake2s tree (..., 8, n) of canonical limbs
-    (..., 8, n), one pass per TREE_LEVELS levels (a tree of up to 2^8
-    leaves takes one launch)."""
+    (..., 8, n), every tree of the batch in one launch."""
     batch, n = tree_layout(canon)
     if canon.device.type == "cpu":
         return merkle_paired_plain(canon)
@@ -97,11 +133,12 @@ def merkle_paired(canon: torch.Tensor) -> torch.Tensor:
     flat = torch.empty_like(canon)
     if batch == 0:
         return flat
-    entry = K._entry("merkle")
-    for p, (width, in_off, levels) in enumerate(tree_passes(n)):
-        err = entry(flat.data_ptr(), canon.data_ptr() if p == 0 else None, batch, n,
-                    width, in_off, levels, *K._stream(canon))
-        K._finish("merkle", err)
+    n_counters = tree_counters(n)
+    counters = ticket_counters(canon, batch * n_counters) if n_counters else None
+    err = K._entry("merkle")(flat.data_ptr(), canon.data_ptr(),
+                             None if counters is None else counters.data_ptr(), batch, n,
+                             n_counters, *K._stream(canon))
+    K._finish("merkle", err)
     return flat
 
 

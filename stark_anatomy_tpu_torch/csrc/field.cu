@@ -17,8 +17,8 @@
 //   m = 2 states in one launch, optionally writing all 28 states.
 //   Replaces stark_anatomy_tpu/models/rescue_prime.py:_permutation_scan
 //   (trace_batch, hash_batch), a lax.scan over K0 and the jnp adds.
-// H3 stark_ntt: a whole radix-2 NTT of n <= 8192 points in one thread
-//   block, with the optional pre-scale, post-scale and 1/n.  Replaces
+// H3 stark_ntt: a whole NTT of n <= 8192 points in one launch, with the
+//   optional pre-scale, post-scale and 1/n.  Replaces
 //   stark_anatomy_tpu/ops/ntt.py:ntt_core/_stages, _lde_core and
 //   _coset_interp_core, and ops/stage_ntt.py:staged_ntt_core (the same
 //   values).  Above 8192 points ops/ntt.py runs a four-step transform with
@@ -94,23 +94,47 @@
 //     are 512 bytes read by every lane alike (loads that the L1 cache
 //     serves).  Blocks are small (kRescueThreads) so that a large batch
 //     spreads over the SMs: B = 4096 gives 128 blocks of two warps.
-//   * H3 (ntt_kernel) gives each transform one block of kNttThreads,
-//     with the whole transform in dynamic shared memory as four 32-bit
-//     words per element, and the n/2 twiddles beside it (24 n bytes:
-//     96 KiB at n = 4096, 192 KiB at n = 8192, above the default 48 KiB,
-//     so the launch raises the block's limit).  Each thread loads limb
-//     rows coalesced, applies the pre-scale, and stores the element at
-//     its bit-reversed place (__brev); the block copies the twiddles
-//     omega^j, j < n/2, from the (8, n) power table.  Then log2(n)
-//     radix-2 stages, each thread taking n/2 / blockDim butterflies, with
-//     __syncthreads() between stages; a butterfly at position j of a
-//     half-block m takes the twiddle omega^(j * n/(2m)).  On the way out
-//     the thread folds in 1/n and the post-scale.  What bounds it: at
-//     (2, 8, 4096) the bytes (in and out once, about 0.23 us); its time
-//     is the n/2 log2(n) products issued by the one SM that holds a
-//     transform.  On the main path a transform was six launches per
-//     stage (76 for the LDE at n = 4096): that host time is the gap this
-//     closes, not the device time.
+//   * H3 (ntt_kernel) runs a transform of n = 2^L points as Stockham
+//     passes (each pass reads positions t + q n/8 and writes its outputs
+//     in place of the bit reversal, so input and output stay in natural
+//     order): radix 8 while three bits are left, then one pass of radix 4
+//     or 2.  The thread t < n/8 of a transform holds 8 elements in
+//     registers through a pass (the twiddles omega^(k r n/(Ns R)), then an
+//     R-point DFT with constant twiddles: 5 products for R = 8), so 4096
+//     points take 4 passes and 3 exchanges through shared memory (6
+//     barriers), not 12 radix-2 stages and 12 barriers.  The first pass
+//     reads device memory (its twiddles are all 1) and the last writes
+//     it, with 1/n and the post-scale.  Shared memory holds only the
+//     elements (16 n bytes, a 16-byte slot each, XOR-swizzled so that a
+//     quarter warp's eight slots fall in eight bank groups); the twiddles
+//     come through the read-only cache from a packed (n, 4) table (one
+//     16-byte load each), which the wrapper packs once per power table.
+//     A two-level table (omega^(64a + b) = omega^(64a) omega^b) would
+//     cost a product per twiddle, 7 more products on a pass's 12.  The
+//     products are mont_mul_chain, the carry-flag form of mont_mul_words.
+//     Two paths (field/kernels.py:ntt_plan):
+//       - cluster: where the batch would leave SMs idle (batch * 8 <= the
+//         SM count, n >= 1024: the sign, the verify, the generic prover),
+//         each transform is spread over a cluster of 8 blocks, element i
+//         in block i / (n/8) (distributed shared memory:
+//         cluster.map_shared_rank, cluster.sync; the cluster syncs once
+//         before any block touches another's shared memory, so that every
+//         block of it is known to run), so a 4096-point transform runs on
+//         8 SMs, not 1;
+//       - persistent: otherwise one block a transform (two at n = 8192,
+//         whose 1024 threads one block cannot hold), a grid of the blocks
+//         resident at once looping over the rows.  Up to n = 4096 the
+//         block stages the next row's limbs into shared memory by
+//         cp.async (32 n bytes beside the elements) while the current
+//         row's passes run, and a per-row post-scale row (the four-step's
+//         twiddles) the same way between them.
+//     What bounds it: instructions.  At the four-step's (4096, 8, 4096)
+//     the bytes are 1.61 GB with the post-scale (0.48 ms at 3.35 TB/s),
+//     while about 6 products a point, some 170 SASS instructions each with
+//     their adds, are about 0.53 ms of issue at the card's full rate, on
+//     16 warps an SM (128 registers a thread); it ran 1.15 ms (PERF.md).
+//     At the sign's (2, 8, 4096) the bytes are 0.2 us and the time is one
+//     thread's chain of about 49 products.
 //   * H6 (fri_fold_kernel) gives each thread one element i < h of the
 //     folded codeword: it reads c[i], c[i + h] and u[i], computes
 //     c'[i] = 2^-1 ((c[i] + c[i+h]) + alpha u[i] (c[i] - c[i+h])) (the
@@ -141,6 +165,12 @@
 // Built by one nvcc call into a shared library with a plain C interface
 // (field/kernels.py).  Every entry point launches on the caller's stream,
 // does not synchronise, and returns cudaGetLastError().
+
+#include <cooperative_groups.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "field_arith.cuh"
 
@@ -304,8 +334,8 @@ __global__ void __launch_bounds__(kRescueThreads)
   }
 }
 
-constexpr int kNttMaxLog = 13;     // n <= 8192: 192 KiB of shared memory
-constexpr int kNttThreads = 1024;
+constexpr int kNttMaxLog = 13;
+constexpr int kNttMaxThreads = 512;     // threads a block: n/8 per transform, over C blocks
 
 __device__ __forceinline__ void to_words(const uint4& v, uint32_t w[4]) {
   w[0] = v.x;
@@ -314,64 +344,447 @@ __device__ __forceinline__ void to_words(const uint4& v, uint32_t w[4]) {
   w[3] = v.w;
 }
 
-// One block per transform (row) of x, a (batch, 8, n) operand; n = 2^log_n.
-// powers: the (8, n) table omega^j (omega^-j for the inverse).  pre and
-// post scale the input and output where their ptr is set; n_inv, where
-// set, is the (8, 1) constant 1/n of the inverse.  Shared memory: the n
-// elements, then the n/2 twiddles omega^j, j < n/2, each 4 words.
-__global__ void __launch_bounds__(kNttThreads)
-    ntt_kernel(int32_t* __restrict__ out, Operand x, Operand powers, Operand pre,
-               Operand post, Operand n_inv, int log_n) {
-  extern __shared__ uint4 smem[];
-  const int n = 1 << log_n;
-  uint4* const twiddle = smem + n;
-  const int64_t row = blockIdx.x;
-  for (int j = threadIdx.x; j < n / 2; j += blockDim.x) {
-    uint32_t w[4];
-    load4(powers, 0, j, w);
-    twiddle[j] = make_uint4(w[0], w[1], w[2], w[3]);
-  }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    uint32_t v[4];
-    load4(x, row, j, v);
-    if (pre.ptr != nullptr) {
-      uint32_t c[4];
-      load4(pre, row, j, c);
-      mont_mul_words(v, c, v);
-    }
-    const int at = log_n == 0 ? 0 : static_cast<int>(__brev(static_cast<uint32_t>(j)) >> (32 - log_n));
-    smem[at] = make_uint4(v[0], v[1], v[2], v[3]);
-  }
-  __syncthreads();
-  for (int s = 0; s < log_n; ++s) {
-    const int m = 1 << s;
-    for (int i = threadIdx.x; i < n / 2; i += blockDim.x) {
-      const int j = i & (m - 1);
-      const int pos = ((i >> s) << (s + 1)) + j;
-      uint32_t u[4], v[4], w[4], t[4];
-      to_words(smem[pos], u);
-      to_words(smem[pos + m], v);
-      to_words(twiddle[j << (log_n - 1 - s)], w);
-      mont_mul_words(v, w, t);
-      AddMod()(u, t, v);             // u + t
-      SubMod()(u, t, u);             // u - t
-      smem[pos] = make_uint4(v[0], v[1], v[2], v[3]);
-      smem[pos + m] = make_uint4(u[0], u[1], u[2], u[3]);
-    }
+__device__ __forceinline__ uint4 from_words(const uint32_t w[4]) {
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The exchange buffer's slot of element i within a block: an XOR swizzle
+// of the low three bits by the next three, so that the eight 16-byte
+// accesses of a quarter warp fall in eight distinct bank groups both when
+// they are consecutive (every read, and the writes of a pass with
+// Ns >= 8) and when they stride by 8 (the writes of the first pass).
+__device__ __forceinline__ int ntt_slot(int i) { return i ^ ((i >> 3) & 7); }
+
+// Barrier over the threads of one transform: its block, or its cluster.
+template <int C>
+__device__ __forceinline__ void ntt_sync() {
+  if constexpr (C == 1) {
     __syncthreads();
+  } else {
+    cooperative_groups::this_cluster().sync();
   }
-  uint32_t scale[4];
-  if (n_inv.ptr != nullptr) load4(n_inv, 0, 0, scale);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    uint32_t v[4];
-    to_words(smem[j], v);
-    if (n_inv.ptr != nullptr) mont_mul_words(v, scale, v);
-    if (post.ptr != nullptr) {
-      uint32_t c[4];
-      load4(post, row, j, c);
-      mont_mul_words(v, c, v);
+}
+
+// Element i of a transform's exchange buffer (n/C elements in each block
+// of its cluster, block i / (n/C) holding element i at i % (n/C)); a
+// pointer into another block's shared memory where C > 1.
+template <int C>
+__device__ __forceinline__ uint4* ntt_elem(uint4* local, int per_log, int i) {
+  if constexpr (C == 1) {
+    return local + ntt_slot(i);
+  } else {
+    return cooperative_groups::this_cluster().map_shared_rank(local, i >> per_log) +
+           ntt_slot(i & ((1 << per_log) - 1));
+  }
+}
+
+// 16-byte asynchronous copies from device memory to shared memory.  A
+// host compiler (a g++ build that checks the device code on the CPU) gets
+// a plain copy.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+#ifdef __CUDACC__
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+#else
+  memcpy(smem, gmem, 16);
+#endif
+}
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.commit_group;\n" ::);
+#endif
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// The block's threads copy the (8, n) limb rows at src (32 n bytes) into
+// stage, asynchronously; the caller commits the group.
+__device__ __forceinline__ void stage_rows(int32_t* stage, const int32_t* src, int n) {
+  for (int c = threadIdx.x; c < 2 * n; c += blockDim.x) cp_async16(stage + 4 * c, src + 4 * c);
+}
+
+// Element j of a staged (8, n) limb row, as four words.
+__device__ __forceinline__ void staged_words(const int32_t* stage, int n, int j, uint32_t w[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    w[k] = (static_cast<uint32_t>(stage[2 * k * n + j]) & 0xFFFFu) |
+           (static_cast<uint32_t>(stage[(2 * k + 1) * n + j]) << 16);
+  }
+}
+
+// H3's Montgomery product: the value of mont_mul_words (field_arith.cuh),
+// with the carries of its word sums on the carry flag (PTX add.cc / madc
+// chains) in place of 64-bit sums split back into words: 65 PTX
+// instructions (more in SASS, where a high half with a carry in is an
+// IMAD.HI and an IADD3.X) and no 64-bit temporaries, so fewer live
+// registers: at the 128-register cap of H3's 512-thread blocks
+// mont_mul_words spilled more and ran slower.  T = a*b row by row (the
+// low halves of a*b_i in one carry chain, the high halves in a second),
+// then the one-step reduction of mont_reduce and the conditional
+// subtract of p.  r may alias a or b: the outputs are written last.
+// A host compiler (a g++ build that checks the device code on the CPU)
+// takes mont_mul_words.
+__device__ __forceinline__ void mont_mul_chain(const uint32_t a[4], const uint32_t b[4],
+                                               uint32_t r[4]) {
+#ifdef __CUDACC__
+  asm("{\n\t"
+      ".reg .u32 t<8>, m<4>, q<4>, d<4>, c3, kk, w, ov, bb;\n\t"
+      ".reg .pred keep;\n\t"
+      // row 0: t0..t4 = a * b0
+      "mul.lo.u32 t0, %4, %8;\n\t"
+      "mul.lo.u32 t1, %5, %8;\n\t"
+      "mul.lo.u32 t2, %6, %8;\n\t"
+      "mul.lo.u32 t3, %7, %8;\n\t"
+      "mad.hi.cc.u32 t1, %4, %8, t1;\n\t"
+      "madc.hi.cc.u32 t2, %5, %8, t2;\n\t"
+      "madc.hi.cc.u32 t3, %6, %8, t3;\n\t"
+      "madc.hi.u32 t4, %7, %8, 0;\n\t"
+      // row 1: t1..t5 += a * b1
+      "mad.lo.cc.u32 t1, %4, %9, t1;\n\t"
+      "madc.lo.cc.u32 t2, %5, %9, t2;\n\t"
+      "madc.lo.cc.u32 t3, %6, %9, t3;\n\t"
+      "madc.lo.cc.u32 t4, %7, %9, t4;\n\t"
+      "addc.u32 t5, 0, 0;\n\t"
+      "mad.hi.cc.u32 t2, %4, %9, t2;\n\t"
+      "madc.hi.cc.u32 t3, %5, %9, t3;\n\t"
+      "madc.hi.cc.u32 t4, %6, %9, t4;\n\t"
+      "madc.hi.u32 t5, %7, %9, t5;\n\t"
+      // row 2: t2..t6 += a * b2
+      "mad.lo.cc.u32 t2, %4, %10, t2;\n\t"
+      "madc.lo.cc.u32 t3, %5, %10, t3;\n\t"
+      "madc.lo.cc.u32 t4, %6, %10, t4;\n\t"
+      "madc.lo.cc.u32 t5, %7, %10, t5;\n\t"
+      "addc.u32 t6, 0, 0;\n\t"
+      "mad.hi.cc.u32 t3, %4, %10, t3;\n\t"
+      "madc.hi.cc.u32 t4, %5, %10, t4;\n\t"
+      "madc.hi.cc.u32 t5, %6, %10, t5;\n\t"
+      "madc.hi.u32 t6, %7, %10, t6;\n\t"
+      // row 3: t3..t7 += a * b3
+      "mad.lo.cc.u32 t3, %4, %11, t3;\n\t"
+      "madc.lo.cc.u32 t4, %5, %11, t4;\n\t"
+      "madc.lo.cc.u32 t5, %6, %11, t5;\n\t"
+      "madc.lo.cc.u32 t6, %7, %11, t6;\n\t"
+      "addc.u32 t7, 0, 0;\n\t"
+      "mad.hi.cc.u32 t4, %4, %11, t4;\n\t"
+      "madc.hi.cc.u32 t5, %5, %11, t5;\n\t"
+      "madc.hi.cc.u32 t6, %6, %11, t6;\n\t"
+      "madc.hi.u32 t7, %7, %11, t7;\n\t"
+      // m = c3 * 2^96 - T_lo mod 2^128, c3 = t0 * kP3; kk = -(its borrow)
+      "mul.lo.u32 c3, t0, 0xCB800000;\n\t"
+      "sub.cc.u32 m0, 0, t0;\n\t"
+      "subc.cc.u32 m1, 0, t1;\n\t"
+      "subc.cc.u32 m2, 0, t2;\n\t"
+      "subc.cc.u32 m3, c3, t3;\n\t"
+      "subc.u32 kk, 0, 0;\n\t"
+      // q = (m * kP3 + c3) / 2^32 (the low word of the sum is 0)
+      "mad.lo.cc.u32 w, m0, 0xCB800000, c3;\n\t"
+      "madc.lo.cc.u32 q0, m1, 0xCB800000, 0;\n\t"
+      "madc.lo.cc.u32 q1, m2, 0xCB800000, 0;\n\t"
+      "madc.lo.cc.u32 q2, m3, 0xCB800000, 0;\n\t"
+      "addc.u32 q3, 0, 0;\n\t"
+      "mad.hi.cc.u32 q0, m0, 0xCB800000, q0;\n\t"
+      "madc.hi.cc.u32 q1, m1, 0xCB800000, q1;\n\t"
+      "madc.hi.cc.u32 q2, m2, 0xCB800000, q2;\n\t"
+      "madc.hi.u32 q3, m3, 0xCB800000, q3;\n\t"
+      // r = T_hi + q + borrow (the carry flag set from kk), with its 2^128 bit
+      "add.cc.u32 w, kk, kk;\n\t"
+      "addc.cc.u32 t4, t4, q0;\n\t"
+      "addc.cc.u32 t5, t5, q1;\n\t"
+      "addc.cc.u32 t6, t6, q2;\n\t"
+      "addc.cc.u32 t7, t7, q3;\n\t"
+      "addc.u32 ov, 0, 0;\n\t"
+      // r - p, kept where r >= p (or r has its 2^128 bit)
+      "sub.cc.u32 d0, t4, 1;\n\t"
+      "subc.cc.u32 d1, t5, 0;\n\t"
+      "subc.cc.u32 d2, t6, 0;\n\t"
+      "subc.cc.u32 d3, t7, 0xCB800000;\n\t"
+      "subc.u32 bb, ov, 0;\n\t"
+      "setp.lt.s32 keep, bb, 0;\n\t"
+      "selp.b32 %0, t4, d0, keep;\n\t"
+      "selp.b32 %1, t5, d1, keep;\n\t"
+      "selp.b32 %2, t6, d2, keep;\n\t"
+      "selp.b32 %3, t7, d3, keep;\n\t"
+      "}"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]));
+#else
+  mont_mul_words(a, b, r);
+#endif
+}
+
+// The twiddle omega^e from the packed table (one 16-byte load through the
+// read-only cache).
+__device__ __forceinline__ void twiddle(const uint4* __restrict__ tw, int e, uint32_t w[4]) {
+  to_words(__ldg(tw + e), w);
+}
+
+// a, b <- a + w b, a - w b (w = 1 where w is null).
+__device__ __forceinline__ void butterfly(uint32_t a[4], uint32_t b[4], const uint32_t* w) {
+  uint32_t t[4];
+  if (w != nullptr) {
+    mont_mul_chain(b, w, t);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) t[k] = b[k];
+  }
+  AddMod()(a, t, b);      // b holds a + t for now
+  SubMod()(a, t, a);      // a = a - t
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t s = b[k];
+    b[k] = a[k];
+    a[k] = s;
+  }
+}
+
+// In place, X[s] = sum_r v[r] w_R^(r s) over v[0..R), w_R = omega^(n/R)
+// = tw[n/R], natural order in and out: radix-2 decimation in time over
+// the even and odd halves, 0 products for R = 2, 1 for R = 4, 5 for R = 8.
+template <int R>
+__device__ __forceinline__ void dft(uint32_t (*v)[4], const uint4* __restrict__ tw, int log_n) {
+  if constexpr (R == 2) {
+    butterfly(v[0], v[1], nullptr);
+  } else if constexpr (R == 4) {
+    uint32_t w4[4];
+    twiddle(tw, 1 << (log_n - 2), w4);
+    butterfly(v[0], v[2], nullptr);        // v0, v2 = E0, E1 of (x0, x2)
+    butterfly(v[1], v[3], nullptr);        // v1, v3 = O0, O1 of (x1, x3)
+    butterfly(v[0], v[1], nullptr);        // X0, X2
+    butterfly(v[2], v[3], w4);             // X1, X3
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {          // (X0, X2, X1, X3) -> natural order
+      const uint32_t t = v[1][k];
+      v[1][k] = v[2][k];
+      v[2][k] = t;
     }
-    store4(out, row, j, n, v);
+  } else {
+    uint32_t e[4][4], o[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        e[r][k] = v[2 * r][k];
+        o[r][k] = v[2 * r + 1][k];
+      }
+    }
+    dft<4>(e, tw, log_n);
+    dft<4>(o, tw, log_n);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      uint32_t w[4];
+      if (s > 0) twiddle(tw, s << (log_n - 3), w);
+      butterfly(e[s], o[s], s > 0 ? w : nullptr);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[s][k] = e[s][k];
+        v[s + 4][k] = o[s][k];
+      }
+    }
+  }
+}
+
+// log2 of a radix.
+template <int R>
+__host__ __device__ constexpr int lg() {
+  return R == 8 ? 3 : (R == 4 ? 2 : 1);
+}
+
+// One Stockham pass of radix R after Ns = 2^lg_ns points, on the 8/R
+// groups of thread t (group g = t + i T, its elements v[i R + r] read
+// from positions g + r n/R = t + (i + r 8/R) T): the twiddles
+// omega^(k r n/(Ns R)), k = g mod Ns (none in the first pass), then the
+// R-point DFT.  Output s of group g goes to ntt_dest.
+template <int R>
+__device__ __forceinline__ void ntt_pass(uint32_t (*v)[4], const uint4* __restrict__ tw, int log_n,
+                                         int t, int lg_t, int lg_ns) {
+#pragma unroll
+  for (int i = 0; i < 8 / R; ++i) {
+    if (lg_ns > 0) {
+      const int k = (t + (i << lg_t)) & ((1 << lg_ns) - 1);
+      const int shift = log_n - lg_ns - lg<R>();
+#pragma unroll
+      for (int r = 1; r < R; ++r) {
+        uint32_t w[4];
+        twiddle(tw, (k * r) << shift, w);
+        mont_mul_chain(v[i * R + r], w, v[i * R + r]);
+      }
+    }
+    dft<R>(v + i * R, tw, log_n);
+  }
+}
+
+// The position of output s of group g in a pass of radix R after 2^lg_ns
+// points: g / Ns * Ns R + g mod Ns + s Ns.
+template <int R>
+__device__ __forceinline__ int ntt_dest(int g, int s, int lg_ns) {
+  return ((g >> lg_ns) << (lg_ns + lg<R>())) + (g & ((1 << lg_ns) - 1)) + (s << lg_ns);
+}
+
+// The element (or thread t's group i) a pass of radix R reads into v[i R + r].
+template <int R>
+__device__ __forceinline__ int ntt_src(int t, int lg_t, int i) {
+  return t + ((i / R + (i % R) * (8 / R)) << lg_t);
+}
+
+// Transforms of n <= 8 points: one thread a row, no shared memory.
+template <int R>
+__device__ __forceinline__ void ntt_tiny(int32_t* __restrict__ out, const Operand& x,
+                                         const uint4* __restrict__ tw, const Operand& pre,
+                                         const Operand& post, const Operand& n_inv, int log_n,
+                                         int64_t row) {
+  uint32_t v[8][4], c[4];
+  const int n = 1 << log_n;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    load4(x, row, j, v[j]);
+    if (pre.ptr != nullptr) {
+      load4(pre, row, j, c);
+      mont_mul_chain(v[j], c, v[j]);
+    }
+  }
+  if constexpr (R > 1) dft<R>(v, tw, log_n);
+  if (n_inv.ptr != nullptr) load4(n_inv, 0, 0, c);
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    if (n_inv.ptr != nullptr) mont_mul_chain(v[j], c, v[j]);
+    if (post.ptr != nullptr) {
+      uint32_t d[4];
+      load4(post, row, j, d);
+      mont_mul_chain(v[j], d, v[j]);
+    }
+    if (j < n) store4(out, row, j, n, v[j]);
+  }
+}
+
+// H3 for 2^log_n >= 16 points, the last pass of radix RL: the rows from
+// `row` on, every `step`.  See ntt_kernel.
+template <int C, bool kStage, int RL>
+__device__ __forceinline__ void ntt_rows(int32_t* __restrict__ out, const Operand& x,
+                                         const uint4* __restrict__ tw, const Operand& pre,
+                                         const Operand& post, const Operand& n_inv, int log_n,
+                                         int64_t batch, uint4* smem, int64_t row, int64_t step) {
+  const int n = 1 << log_n;
+  const int lg_t = log_n - 3;
+  const int rank = C == 1 ? 0 : static_cast<int>(blockIdx.x % C);
+  const int t = rank * blockDim.x + threadIdx.x;
+  const int per_log = log_n - (C >= 2) - (C >= 4) - (C >= 8);     // log2(n / C)
+  int32_t* const stage = reinterpret_cast<int32_t*>(smem + (n / C));
+  const int npass = (log_n + 2) / 3;
+  const int lg_last = 3 * (npass - 1);                             // log2 of the last pass's Ns
+  uint32_t ninv[4];
+  if (n_inv.ptr != nullptr) load4(n_inv, 0, 0, ninv);
+  if constexpr (C > 1) ntt_sync<C>();      // every block of the cluster runs
+  if (kStage && row < batch) {
+    stage_rows(stage, x.ptr + row * x.sb, n);
+    cp_async_commit();
+  }
+  for (; row < batch; row += step) {
+    const int64_t next = row + step;
+    uint32_t v[8][4];
+    // the first pass: radix 8, no twiddles, elements t + r T from device
+    // memory or the staged row, with the pre-scale
+    if (kStage) {
+      cp_async_wait_all();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int j = t + (r << lg_t);
+      if (kStage) {
+        staged_words(stage, n, j, v[r]);
+      } else {
+        load4(x, row, j, v[r]);
+      }
+      if (pre.ptr != nullptr) {
+        uint32_t c[4];
+        load4(pre, row, j, c);
+        mont_mul_chain(v[r], c, v[r]);
+      }
+    }
+    ntt_pass<8>(v, tw, log_n, t, lg_t, 0);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) *ntt_elem<C>(smem, per_log, ntt_dest<8>(t, s, 0)) = from_words(v[s]);
+    ntt_sync<C>();
+    if (kStage && next < batch) {          // every thread has read the staged input
+      stage_rows(stage, x.ptr + next * x.sb, n);
+      cp_async_commit();
+    }
+    // the passes between: radix 8 through the exchange buffer
+    for (int lg_ns = 3; lg_ns < lg_last; lg_ns += 3) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) to_words(*ntt_elem<C>(smem, per_log, ntt_src<8>(t, lg_t, r)), v[r]);
+      ntt_sync<C>();
+      ntt_pass<8>(v, tw, log_n, t, lg_t, lg_ns);
+#pragma unroll
+      for (int s = 0; s < 8; ++s)
+        *ntt_elem<C>(smem, per_log, ntt_dest<8>(t, s, lg_ns)) = from_words(v[s]);
+      ntt_sync<C>();
+    }
+    // the last pass: radix RL, to device memory with 1/n and the post-scale
+#pragma unroll
+    for (int i = 0; i < 8; ++i) to_words(*ntt_elem<C>(smem, per_log, ntt_src<RL>(t, lg_t, i)), v[i]);
+    ntt_sync<C>();                         // every input of this pass is read
+    ntt_pass<RL>(v, tw, log_n, t, lg_t, lg_last);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int j = ntt_dest<RL>(t + ((i / RL) << lg_t), i % RL, lg_last);
+      if (n_inv.ptr != nullptr) mont_mul_chain(v[i], ninv, v[i]);
+      if (post.ptr != nullptr) {
+        uint32_t c[4];
+        load4(post, row, j, c);
+        mont_mul_chain(v[i], c, v[i]);
+      }
+      store4(out, row, j, n, v[i]);
+    }
+  }
+}
+
+// H3.  One transform (row) of x, a contiguous (batch, 8, n) operand, per
+// C blocks (a cluster where C > 1), rows in turn over a persistent grid:
+// row blockIdx.x / C, then every gridDim.x / C.  tw: the packed (n, 4)
+// word table omega^e, e < n (omega^-e for the inverse).  pre and post
+// scale the input and the output where their ptr is set; n_inv, where
+// set, is the (8, 1) constant 1/n of the inverse.  From n = 16 up the
+// transform runs as Stockham passes of radix 8, then one of radix 8, 4 or
+// 2 (ntt_rows), the thread t < T = n/8 of a transform holding 8 elements
+// in registers in each: the first pass reads device memory (or the staged
+// row), the last writes it, and the passes between exchange through
+// shared memory (n/C elements a block).  With kStage (C = 1) the block
+// stages the next row's limbs by cp.async (32 n bytes after the exchange
+// buffer) while the current row's passes run.  Up to 8 points, one thread
+// a row (ntt_tiny).
+template <int C, bool kStage>
+__global__ void __launch_bounds__(kNttMaxThreads)
+    ntt_kernel(int32_t* __restrict__ out, Operand x, const uint4* __restrict__ tw, Operand pre,
+               Operand post, Operand n_inv, int log_n, int64_t batch) {
+  extern __shared__ uint4 smem[];
+  const int64_t step = gridDim.x / C;
+  const int64_t row = blockIdx.x / C;
+  if (log_n <= 3) {
+    if (C == 1 && threadIdx.x == 0) {
+      for (int64_t r = row; r < batch; r += step) {
+        if (log_n == 0) {
+          ntt_tiny<1>(out, x, tw, pre, post, n_inv, log_n, r);
+        } else if (log_n == 1) {
+          ntt_tiny<2>(out, x, tw, pre, post, n_inv, log_n, r);
+        } else if (log_n == 2) {
+          ntt_tiny<4>(out, x, tw, pre, post, n_inv, log_n, r);
+        } else {
+          ntt_tiny<8>(out, x, tw, pre, post, n_inv, log_n, r);
+        }
+      }
+    }
+    return;
+  }
+  if (log_n % 3 == 0) {
+    ntt_rows<C, kStage, 8>(out, x, tw, pre, post, n_inv, log_n, batch, smem, row, step);
+  } else if (log_n % 3 == 1) {
+    ntt_rows<C, kStage, 2>(out, x, tw, pre, post, n_inv, log_n, batch, smem, row, step);
+  } else {
+    ntt_rows<C, kStage, 4>(out, x, tw, pre, post, n_inv, log_n, batch, smem, row, step);
   }
 }
 
@@ -481,6 +894,41 @@ int launch(void* out, const void* a, const void* b, int64_t batch, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The blocks of ntt_kernel instance `inst` (kernel) resident on the card
+// at once with `threads` and `smem` bytes, at this log_n: found on the
+// first launch of each (device, instance, log_n) and kept, so that a later
+// launch makes no runtime call but cudaLaunchKernelEx.  The dynamic shared
+// memory limit of an instance is only ever raised, so a kept count stays
+// true.
+template <typename F>
+cudaError_t ntt_resident(F kernel, int inst, int log_n, int threads, int smem, int device,
+                         int64_t* blocks) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int>, int64_t> resident;
+  static std::map<std::tuple<int, int>, int> smem_limit;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(device, inst, log_n);
+  const auto found = resident.find(key);
+  if (found != resident.end()) {
+    *blocks = found->second;
+    return cudaSuccess;
+  }
+  int& limit = smem_limit[std::make_tuple(device, inst)];
+  cudaError_t err = cudaSuccess;
+  if (smem > limit) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    limit = smem;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  *blocks = resident[key] = static_cast<int64_t>(per_sm) * sms;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -544,34 +992,63 @@ int stark_rescue_perm(void* out, const void* state, int64_t batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x and out: contiguous (batch, 8, n), n = 2^log_n <= 8192.  powers:
-// contiguous (8, n), omega^j (omega^-j for the inverse).  pre and
-// post: null, or operands with strides (sb, sl, se); n_inv: null or a
-// contiguous (8, 1) constant.
-int stark_ntt(void* out, const void* x, int64_t batch, int log_n,
-              const void* powers,
+// x and out: contiguous (batch, 8, n), n = 2^log_n <= 8192.  twiddles:
+// contiguous (n, 4) words, omega^e packed (omega^-e for the inverse).  pre
+// and post: null, or operands with strides (sb, sl, se); n_inv: null or a
+// contiguous (8, 1) constant.  cluster: the blocks a transform is spread
+// over, 1, 2 or 8 (with n/8 a multiple of it); stage (cluster 1 only,
+// n <= 4096): prefetch each row by cp.async.  The grid holds every row, or
+// as many clusters as are resident at once, which then loop over the rows.
+int stark_ntt(void* out, const void* x, int64_t batch, int log_n, const void* twiddles,
               const void* pre, int64_t pre_sb, int64_t pre_sl, int64_t pre_se,
               const void* post, int64_t post_sb, int64_t post_sl,
-              int64_t post_se, const void* n_inv, void* stream, int device) {
+              int64_t post_se, const void* n_inv, int cluster, int stage, void* stream,
+              int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (log_n < 0 || log_n > kNttMaxLog || batch > 0x7FFFFFFF)
+  const int64_t n = int64_t(1) << (log_n < 0 ? 0 : log_n);
+  const int64_t threads_all = n >= 8 ? n / 8 : 1;
+  if (log_n < 0 || log_n > kNttMaxLog || batch > 0x7FFFFFFF ||
+      (cluster != 1 && cluster != 2 && cluster != 8) || threads_all % cluster != 0 ||
+      threads_all / cluster > kNttMaxThreads || (stage && (cluster != 1 || n > 4096)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0) return 0;
-  const int64_t n = int64_t(1) << log_n;
-  const int smem = static_cast<int>((n + n / 2) * sizeof(uint4));
-  err = cudaFuncSetAttribute(ntt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int threads = static_cast<int>(n / 2);
-  threads = threads < 32 ? 32 : (threads > kNttThreads ? kNttThreads : threads);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       (post == nullptr || reinterpret_cast<uintptr_t>(post) % 16 == 0);
+  const bool staged = stage && aligned;
+  const int threads = static_cast<int>(threads_all / cluster);
+  const int smem = static_cast<int>((n / cluster) * sizeof(uint4) + (staged ? 32 * n : 0));
   Operand ox{static_cast<const int32_t*>(x), 8 * n, n, 1};
-  Operand ow{static_cast<const int32_t*>(powers), 0, n, 1};
   Operand opre{static_cast<const int32_t*>(pre), pre_sb, pre_sl, pre_se};
   Operand opost{static_cast<const int32_t*>(post), post_sb, post_sl, post_se};
   Operand oinv{static_cast<const int32_t*>(n_inv), 0, 1, 0};
-  ntt_kernel<<<static_cast<int>(batch), threads, smem,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t*>(out), ox, ow, opre, opost, oinv, log_n);
+  const uint4* tw = static_cast<const uint4*>(twiddles);
+  int32_t* o = static_cast<int32_t*>(out);
+  const int inst = cluster == 8 ? 0 : cluster == 2 ? 1 : staged ? 2 : 3;
+  auto kernel = inst == 0 ? ntt_kernel<8, false>
+                : inst == 1 ? ntt_kernel<2, false>
+                : inst == 2 ? ntt_kernel<1, true> : ntt_kernel<1, false>;
+  // rows in flight: every row, or the clusters resident at once
+  int64_t resident = 0;
+  err = ntt_resident(kernel, inst, log_n, threads, smem, device, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int64_t rows = resident / cluster;
+  if (rows < 1) rows = 1;
+  if (rows > batch) rows = batch;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(rows * cluster));
+  config.blockDim = dim3(static_cast<unsigned>(threads));
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&config, kernel, o, ox, tw, opre, opost, oinv, log_n, batch);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

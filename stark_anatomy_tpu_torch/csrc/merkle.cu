@@ -18,32 +18,53 @@
 // column n - 2 and a zero pad in column n - 1.  Word k of a digest is
 // little-endian bytes 4k..4k+3 of the hashlib digest.
 //
-// Design: one blake2s compression per thread, 256 threads a block.
-//   * The first pass (leaves != 0) gives thread t of block b paired leaf
-//     i = 256 b + t: it packs the two elements' limbs into message words
-//     0-7 (words 8-15 are zero, t = 32 bytes) and hashes them.  A later
-//     pass loads one digest of the level its pass starts from instead.
-//   * Then the block reduces its 256 digests (or the whole level, when it
-//     is narrower) through up to 8 levels in shared memory, 8 words x 256
-//     x 4 B = 8 KiB, one parent (t = 64 bytes) per thread per level,
-//     writing every level into its columns of the flat array.  The loop
-//     count is the same for every thread of the block, and threads
-//     without a node still reach each __syncthreads().
-//   * The wrapper (commit/kernels.py:merkle_paired) launches passes of up
-//     to 8 levels until one digest is left: n = 4096 takes 2 launches,
-//     n = 2^22 (2^21 leaves) 3.  Leading axes (R codewords) are the
-//     grid's y axis, so R trees take the same launches as one.
+// Design: one blake2s compression per thread, 256 threads a block, the
+// whole tree (and R trees, on the grid's y axis) in one launch.
+//   * Stage 0: thread t of block b hashes paired leaf i = 256 b + t (it
+//     packs the two elements' limbs into message words 0-7; words 8-15
+//     are zero, and the compression skips their adds, t = 32 bytes).
+//   * A wide stage (more than 8 blocks) takes each block's 256 nodes up
+//     kStageLevels = 3 levels through shared memory (8 words x 256 x 4 B
+//     = 8 KiB), 128, 64 and 32 parents: every level in full warps.  The
+//     first design went up 8 levels a block, the last five in part of one
+//     warp: 20 warp-compressions for 511 nodes, where these take 15 for
+//     480.  A narrow stage (8 blocks or fewer, where the tree's latency
+//     and not the SMs' issue decides) goes up 8 levels a block, as before.
+//   * Then a last-block-done ticket: each block fences its nodes and adds
+//     one to its group's counter (a group is the 2^levels blocks whose
+//     outputs are one block's 256 inputs); the last of the group to
+//     arrive runs the next stage from those nodes (read through L2,
+//     __ldcg).  The stage that starts from 256 nodes or fewer reduces
+//     them to the root; its levels of 32 nodes and fewer run inside warp 0
+//     by __shfl_sync of the 8 words, with no block barrier.  So the tail
+//     passes of the first design (at 2^24 a pass on 128 blocks and one on
+//     a single block) are gone, and a tree is one launch.  The counters,
+//     one for each block of each stage after the first, start at zero
+//     (the wrapper allocates them zeroed once per device, stream and size
+//     and keeps them, commit/kernels.py:tree_counters), and the last block
+//     of each group zeroes its counter again as it takes its ticket, so a
+//     commit is this one launch.
 //   * The 10 rounds are written out with literal SIGMA indices, so the 16
 //     message words stay in registers (a SIGMA table read at run time
-//     would put them in local memory); rotations are funnel shifts.
+//     would put them in local memory).
 // What bounds it: the compression's integer instructions.  A G step is
 // 12 of them (two three-input adds, two adds, four xors, four rotations),
-// 8 G a round, 10 rounds: about 960 a compression and one compression per
-// tree node, 2^22 - 1 of them at n = 2^22, against 32 bytes read per
-// element and 32 bytes written per column.  So the tree levels stay in
-// shared memory (each digest is written once and never read back from
-// device memory within a pass) and every thread of a live level hashes.
-//
+// 8 G a round, 10 rounds: about 960 a compression, one compression per
+// tree node, against 32 bytes read per element and 32 written per
+// column.  The SASS of the first design (tools/sass_count.py) ran, a
+// compression, 332 LOP3 (the xors), 320 SHF (the rotations, funnel
+// shifts) and 148 IADD3 on the integer pipe and 196 IMAD.IADD on the FMA
+// pipe; an H100 SM partition issues one warp instruction a cycle but each
+// of those pipes takes half a warp a cycle, so the integer pipe's 800
+// instructions (1600 cycles a warp) set the pace, not the 983 issued.
+// Builds that moved the adds to the FMA pipe (products by a one the
+// compiler cannot see through), also the rotations by 16 and 8 (both
+// halves of a product by 2^16 or 2^24), or those rotations to byte
+// permutes measured no gain on the card (PERF.md), so the integer pipe is
+// not the limit, and the plain adds and funnel shifts stay.  At 2^24 the kernel runs at
+// 2.2x the issue bound with 24 warps an SM (80 registers a thread), each
+// compression a chain of four independent G steps; the stall reasons are
+// not measured (PERF.md).
 // H5 replaces the jnp graph stark_anatomy_tpu/utils/rand.py:_expand_impl
 // (seed_expand_mont, bulk_random_mont), bit for bit.  Digest i is the
 // blake2s-256 of the 40-byte message (the 8 seed words, counter i, round
@@ -70,7 +91,10 @@
 namespace {
 
 constexpr int kTreeThreads = 256;
-constexpr int kTreeLevels = 8;       // log2(kTreeThreads): levels one pass reduces
+constexpr int kStageLevels = 3;      // levels a block of a wide stage reduces in full warps: 256 -> 32
+constexpr int64_t kWideStage = 2048; // a stage from more nodes than this (more than 8 blocks) is wide
+constexpr int kTreeLevels = 8;       // levels a block of a narrow stage reduces: 256 -> 1
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 
 constexpr uint32_t kIV0 = 0x6a09e667u, kIV1 = 0xbb67ae85u, kIV2 = 0x3c6ef372u,
                    kIV3 = 0xa54ff53au, kIV4 = 0x510e527fu, kIV5 = 0x9b05688cu,
@@ -81,30 +105,35 @@ __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) {
   return __funnelshift_r(x, x, n);
 }
 
-#define G(a, b, c, d, x, y)        \
-  v[a] = v[a] + v[b] + (x);        \
-  v[d] = rotr(v[d] ^ v[a], 16);    \
-  v[c] = v[c] + v[d];              \
-  v[b] = rotr(v[b] ^ v[c], 12);    \
-  v[a] = v[a] + v[b] + (y);        \
-  v[d] = rotr(v[d] ^ v[a], 8);     \
-  v[c] = v[c] + v[d];              \
+// MX(s): the add of message word s, or none for a zero word of the leaf
+// (words 8-15 of a 32-byte message), known when the code is written out.
+#define MX(a, b, s) (kLeaf && (s) >= 8 ? (a) + (b) : (a) + (b) + m[s])
+
+#define G(a, b, c, d, x, y)     \
+  v[a] = MX(v[a], v[b], x);     \
+  v[d] = rotr(v[d] ^ v[a], 16); \
+  v[c] = v[c] + v[d];           \
+  v[b] = rotr(v[b] ^ v[c], 12); \
+  v[a] = MX(v[a], v[b], y);     \
+  v[d] = rotr(v[d] ^ v[a], 8);  \
+  v[c] = v[c] + v[d];           \
   v[b] = rotr(v[b] ^ v[c], 7);
 
 #define ROUND(s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11, s12, s13, s14, s15) \
-  G(0, 4, 8, 12, m[s0], m[s1])                                                      \
-  G(1, 5, 9, 13, m[s2], m[s3])                                                      \
-  G(2, 6, 10, 14, m[s4], m[s5])                                                     \
-  G(3, 7, 11, 15, m[s6], m[s7])                                                     \
-  G(0, 5, 10, 15, m[s8], m[s9])                                                     \
-  G(1, 6, 11, 12, m[s10], m[s11])                                                   \
-  G(2, 7, 8, 13, m[s12], m[s13])                                                    \
-  G(3, 4, 9, 14, m[s14], m[s15])
+  G(0, 4, 8, 12, s0, s1)                                                            \
+  G(1, 5, 9, 13, s2, s3)                                                            \
+  G(2, 6, 10, 14, s4, s5)                                                           \
+  G(3, 7, 11, 15, s6, s7)                                                           \
+  G(0, 5, 10, 15, s8, s9)                                                           \
+  G(1, 6, 11, 12, s10, s11)                                                         \
+  G(2, 7, 8, 13, s12, s13)                                                          \
+  G(3, 4, 9, 14, s14, s15)
 
 // One final blake2s-256 compression of the message m (16 words, t bytes
-// <= 64) from the initial chain value: the 8 digest words.
-__device__ __forceinline__ void compress(const uint32_t m[16], uint32_t t,
-                                         uint32_t out[8]) {
+// <= 64) from the initial chain value: the 8 digest words.  kLeaf: words
+// 8-15 are zero and are not added.
+template <bool kLeaf>
+__device__ __forceinline__ void compress(const uint32_t m[16], uint32_t t, uint32_t out[8]) {
   uint32_t v[16] = {kH0,  kIV1, kIV2,     kIV3,  kIV4, kIV5, kIV6, kIV7,
                     kIV0, kIV1, kIV2,     kIV3,  kIV4 ^ t, kIV5, ~kIV6, kIV7};
   ROUND(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
@@ -119,76 +148,148 @@ __device__ __forceinline__ void compress(const uint32_t m[16], uint32_t t,
   ROUND(10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0)
   const uint32_t h[8] = {kH0, kIV1, kIV2, kIV3, kIV4, kIV5, kIV6, kIV7};
 #pragma unroll
-  for (int k = 0; k < 8; k++) out[k] = h[k] ^ v[k] ^ v[k + 8];
+  for (int i = 0; i < 8; i++) out[i] = h[i] ^ v[i] ^ v[i + 8];
 }
 
 #undef ROUND
 #undef G
+#undef MX
 
-// One pass over codeword blockIdx.y: the input level has `width` nodes at
-// columns [in_off, in_off + width) (the leaves, hashed here from canon,
-// when canon is not null), and the pass writes the next `levels` levels.
+// The tree of codeword blockIdx.y in one launch.  Stage 0: block b hashes
+// paired leaves [256 b, 256 b + 256) (all of them when there are fewer)
+// and reduces them kStageLevels levels (in full warps: 128, 64 and 32
+// parents) through shared memory, writing every level into its columns
+// of the flat array.  Then a last-block-done ticket: the block counts
+// itself in its group of kGroup blocks (a counter a group, in counters),
+// and the last of the group reduces the group's 256 outputs by the next
+// kStageLevels levels, and so on up; the block that takes a level of 256
+// nodes or fewer reduces it to the root, its levels of 32 nodes and fewer
+// inside warp 0 by shuffles, with no block barrier.  counters: per
+// codeword, one zeroed counter for each block of each stage after the
+// first (commit/kernels.py:tree_stages gives the stages), left zeroed.
 __global__ void __launch_bounds__(kTreeThreads)
 merkle_kernel(uint32_t* __restrict__ flat, const uint32_t* __restrict__ canon,
-              int64_t n, int64_t width, int64_t in_off, int levels) {
+              unsigned* __restrict__ counters, int64_t n, int64_t n_counters) {
   __shared__ uint32_t s[8][kTreeThreads];
+  __shared__ int last;
   const int t = threadIdx.x;
   const int64_t row = blockIdx.y;
   uint32_t* f = flat + row * 8 * n;
-  // nodes of the input level in this block: all 256, or the whole level
-  int count = width < kTreeThreads ? static_cast<int>(width) : kTreeThreads;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kTreeThreads + t;
-  uint32_t d[8];
-  if (t < count) {
-    if (canon != nullptr) {
-      const uint32_t* c = canon + row * 8 * n;
+  unsigned* cnt = counters + row * n_counters;
+  int64_t width = n / 2;             // nodes of the level this stage starts from
+  int64_t off = 0;                   // its first flat column
+  int64_t blk = blockIdx.x;          // this block's place in the stage
+  int64_t cnt_off = 0;               // the next stage's first counter
+  for (bool leaves = true;; leaves = false) {
+    int count = width < kTreeThreads ? static_cast<int>(width) : kTreeThreads;
+    const int levels = width > kWideStage ? kStageLevels
+                       : (width > kTreeThreads ? kTreeLevels : 63 - __clzll(width));
+    const int64_t i = blk * kTreeThreads + t;
+    uint32_t d[8];
+    if (t < count) {
+      if (leaves) {
+        const uint32_t* c = canon + row * 8 * n;
+        uint32_t m[16];
+#pragma unroll
+        for (int q = 0; q < 4; q++) {
+          m[q] = (__ldg(c + 2 * q * n + i) & 0xffffu) | (__ldg(c + (2 * q + 1) * n + i) << 16);
+          m[4 + q] = (__ldg(c + 2 * q * n + i + width) & 0xffffu) |
+                     (__ldg(c + (2 * q + 1) * n + i + width) << 16);
+        }
+#pragma unroll
+        for (int q = 8; q < 16; q++) m[q] = 0;
+        compress<true>(m, 32, d);
+#pragma unroll
+        for (int q = 0; q < 8; q++) f[q * n + i] = d[q];
+        if (i == 0) {
+#pragma unroll
+          for (int q = 0; q < 8; q++) f[q * n + n - 1] = 0;   // the pad column
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; q++) d[q] = __ldcg(f + q * n + off + i);   // other blocks' nodes
+      }
+#pragma unroll
+      for (int q = 0; q < 8; q++) s[q][t] = d[q];
+    }
+    int64_t lw = width;              // width of the level just written
+    int done = 0;
+    // levels of more than 32 nodes: through shared memory, full warps
+    for (; done < levels && count > 32; done++) {
+      off += lw;
+      lw >>= 1;
+      count >>= 1;
+      __syncthreads();               // the level below is in s
       uint32_t m[16];
+      if (t < count) {
 #pragma unroll
-      for (int k = 0; k < 4; k++) {
-        m[k] = (c[2 * k * n + i] & 0xffffu) | (c[(2 * k + 1) * n + i] << 16);
-        m[4 + k] = (c[2 * k * n + i + width] & 0xffffu) |
-                   (c[(2 * k + 1) * n + i + width] << 16);
+        for (int q = 0; q < 8; q++) {
+          m[q] = s[q][2 * t];
+          m[8 + q] = s[q][2 * t + 1];
+        }
       }
+      __syncthreads();               // every child read before any parent lands
+      if (t < count) {
+        compress<false>(m, 64, d);
+        const int64_t j = blk * count + t;
 #pragma unroll
-      for (int k = 8; k < 16; k++) m[k] = 0;
-      compress(m, 32, d);
-#pragma unroll
-      for (int k = 0; k < 8; k++) f[k * n + in_off + i] = d[k];
-      if (i == 0) {
-#pragma unroll
-        for (int k = 0; k < 8; k++) f[k * n + n - 1] = 0;   // the pad column
-      }
-    } else {
-#pragma unroll
-      for (int k = 0; k < 8; k++) d[k] = f[k * n + in_off + i];
-    }
-#pragma unroll
-    for (int k = 0; k < 8; k++) s[k][t] = d[k];
-  }
-  int64_t off = in_off, level_width = width;
-  for (int q = 0; q < levels; q++) {
-    off += level_width;
-    level_width >>= 1;
-    count >>= 1;
-    __syncthreads();                 // the level below is in s
-    uint32_t m[16];
-    if (t < count) {
-#pragma unroll
-      for (int k = 0; k < 8; k++) {
-        m[k] = s[k][2 * t];
-        m[8 + k] = s[k][2 * t + 1];
+        for (int q = 0; q < 8; q++) {
+          s[q][t] = d[q];
+          f[q * n + off + j] = d[q];
+        }
       }
     }
-    __syncthreads();                 // every child read before any parent lands
-    if (t < count) {
-      compress(m, 64, d);
-      const int64_t j = static_cast<int64_t>(blockIdx.x) * count + t;
+    // levels of 32 nodes and fewer: inside warp 0, node t in lane t (the
+    // other warps only step the level past them)
+    if (done < levels) {
+      __syncthreads();
+      if (t < 32) {
+        int64_t o = off, w = lw;
+        int c = count;
 #pragma unroll
-      for (int k = 0; k < 8; k++) {
-        s[k][t] = d[k];
-        f[k * n + off + j] = d[k];
+        for (int q = 0; q < 8; q++) d[q] = s[q][t < c ? t : 0];
+        for (int l = done; l < levels; l++) {
+          o += w;
+          w >>= 1;
+          c >>= 1;
+          uint32_t m[16];
+#pragma unroll
+          for (int q = 0; q < 8; q++) {
+            m[q] = __shfl_sync(kFullWarp, d[q], (2 * t) & 31);
+            m[8 + q] = __shfl_sync(kFullWarp, d[q], (2 * t + 1) & 31);
+          }
+          compress<false>(m, 64, d);
+          if (t < c) {
+            const int64_t j = blk * c + t;
+#pragma unroll
+            for (int q = 0; q < 8; q++) f[q * n + o + j] = d[q];
+          }
+        }
+      }
+      for (; done < levels; done++) {
+        off += lw;
+        lw >>= 1;
       }
     }
+    if (width <= kTreeThreads) return;   // this block wrote the root
+    // the next stage: the last block of each group of 2^levels blocks
+    // (whose outputs make 256 nodes) takes it
+    const int64_t blocks = width / kTreeThreads;
+    const int64_t group = blk >> levels;
+    const int members = blocks < (int64_t(1) << levels) ? static_cast<int>(blocks) : 1 << levels;
+    __threadfence();                 // this block's nodes, before its ticket
+    __syncthreads();
+    if (t == 0) {
+      unsigned* ticket = cnt + cnt_off + group;
+      last = atomicAdd(ticket, 1u) == static_cast<unsigned>(members - 1);
+      if (last) *ticket = 0;         // every member has counted: zero for the next launch
+      __threadfence();
+    }
+    __syncthreads();
+    if (!last) return;
+    cnt_off += (blocks >> levels) > 0 ? (blocks >> levels) : 1;
+    width = lw;                      // the level just written (at column off) starts the next stage
+    blk = group;
   }
 }
 
@@ -230,7 +331,7 @@ seed_expand_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ seed,
     for (uint32_t r = 0; need0 || need1; r++) {
       m[9] = r;
       uint32_t d[8];
-      compress(m, 40, d);
+      compress<false>(m, 40, d);
       if (need0 && below_p(d)) {
 #pragma unroll
         for (int k = 0; k < 4; k++) v0[k] = d[k];
@@ -255,27 +356,23 @@ seed_expand_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ seed,
 
 extern "C" {
 
-// One pass of H4 over `batch` codewords: canon (batch, 8, n) canonical
-// limbs for the leaf pass, else null; flat (batch, 8, n) the tree.  The
-// input level has `width` nodes (a power of two) at column in_off; the
-// pass reduces `levels` <= 8 levels, at most log2(width), or log2(256)
-// when the level spans several blocks.
-int stark_merkle(void* flat, const void* canon, int64_t batch, int64_t n,
-                 int64_t width, int64_t in_off, int levels, void* stream,
-                 int device) {
+// H4 over `batch` codewords in one launch: canon (batch, 8, n) canonical
+// limbs, flat (batch, 8, n) the tree, counters (batch, n_counters) zeroed
+// unsigned ints, zeroed again when the launch ends, n_counters the
+// tickets of one tree (a counter for each block of each stage after the
+// first).
+int stark_merkle(void* flat, const void* canon, void* counters, int64_t batch, int64_t n,
+                 int64_t n_counters, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0) return 0;
-  const int64_t blocks = width > kTreeThreads ? width / kTreeThreads : 1;
-  if (n < 2 || (n & (n - 1)) || width < 1 || (width & (width - 1)) ||
-      levels < 0 || levels > kTreeLevels || (width >> levels) < 1 ||
-      (width > kTreeThreads && levels != kTreeLevels) ||
-      blocks > 0x7FFFFFFF || batch > 65535)
+  const int64_t blocks = n / 2 > kTreeThreads ? n / 2 / kTreeThreads : 1;
+  if (n < 2 || (n & (n - 1)) || blocks > 0x7FFFFFFF || batch > 65535 || n_counters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
   merkle_kernel<<<grid, kTreeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(flat), static_cast<const uint32_t*>(canon), n,
-      width, in_off, levels);
+      static_cast<uint32_t*>(flat), static_cast<const uint32_t*>(canon),
+      static_cast<unsigned*>(counters), n, n_counters);
   return static_cast<int>(cudaGetLastError());
 }
 

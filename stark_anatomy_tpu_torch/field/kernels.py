@@ -9,7 +9,8 @@ field/limb_arith.py:add_mod_rows and sub_mod_rows.  H2
 ``rescue_permutation`` runs the whole Rescue-Prime permutation in one
 launch (stark_anatomy_tpu/models/rescue_prime.py:_permutation_scan), and
 H3 ``ntt`` a whole NTT of up to 8192 points in one launch
-(stark_anatomy_tpu/ops/ntt.py:ntt_core).  H6 ``fri_fold`` runs one round of
+(stark_anatomy_tpu/ops/ntt.py:ntt_core), on one of two paths by the
+batch (``ntt_plan``).  H6 ``fri_fold`` runs one round of
 the FRI fold (stark_anatomy_tpu/protocols/fri.py:_fold_kernel and
 _square_half) and writes the folded codeword's canonical form beside it;
 H7 ``fri_fold_batched`` does the same for a batch of codewords, one
@@ -38,6 +39,7 @@ import ctypes
 import math
 import os
 import shutil
+import weakref
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -82,9 +84,14 @@ ALPHA_INV_CHAIN = (
     + [step for byte in (0xAA,) * 14 + (0xAB,)
        for step in [("acc", "acc", "acc")] * 8 + [("acc", "acc", f"x{byte}")]]
 )
-NTT_MAX = 8192          # H3 holds a whole transform in one block's shared memory
+NTT_MAX = 8192          # H3 holds a whole transform in shared memory (one block or a cluster)
+NTT_CLUSTER = 8         # blocks a transform is spread over when the batch cannot fill the card
+NTT_CLUSTER_MIN = 1024  # ... from n = 1024 up (16 threads a block; below, a block is enough)
+NTT_STAGE = 4096        # the n whose persistent path stages each row (one block an SM)
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+_SMS: Dict[int, int] = {}                 # device index -> its SM count
+_TWIDDLE_WORDS: Dict[int, tuple] = {}     # id(power table) -> (weakref, version, packed words)
 build_log = ""          # nvcc's output (ptxas register use) of the last build
 _libs = None
 _fns: Dict[str, object] = {}    # kernel name -> its ctypes entry point
@@ -130,9 +137,8 @@ _ARGTYPES = {
     + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
     "ntt": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 2
     + [ctypes.c_int64] * 3 + [ctypes.c_void_p] + [ctypes.c_int64] * 3
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int],
-    "merkle": [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 4
-    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int],
+    + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int],
+    "merkle": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_void_p, ctypes.c_int],
     "seed_expand": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int],
     "fri_fold": [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_uint64] * 4
     + [ctypes.c_void_p, ctypes.c_int],
@@ -361,8 +367,8 @@ def ntt_layout(values: torch.Tensor) -> Tuple[int, int]:
     if n < 1 or n & (n - 1):
         raise ValueError(f"ntt: the length must be a power of two, got {n}")
     if n > NTT_MAX:
-        raise ValueError(f"ntt: the one-block kernel takes n <= {NTT_MAX} (its shared "
-                         f"memory holds the whole transform); got n = {n}")
+        raise ValueError(f"ntt: the kernel takes n <= {NTT_MAX} (its shared memory holds "
+                         f"the whole transform); got n = {n}")
     if not values.is_contiguous():
         raise ValueError("ntt: the kernel takes a contiguous input")
     return math.prod(values.shape[:-2]), n.bit_length() - 1
@@ -379,15 +385,61 @@ def _scale_args(name: str, scale: Optional[torch.Tensor], lead, n: int):
     return scale.data_ptr(), *strides
 
 
+def ntt_plan(batch: int, log_n: int, sms: int) -> Tuple[str, int, bool]:
+    """(path, blocks per transform, staged) of H3 for ``batch`` transforms
+    of 2^log_n points on a card of ``sms`` SMs.  "cluster": each transform
+    spread over a cluster of NTT_CLUSTER blocks, where the batch's clusters
+    leave SMs idle otherwise (the sign, the verify, the generic prover).
+    "persistent": one block a transform (two at n = 8192, whose 1024
+    threads one block cannot hold), a grid of the blocks resident at once
+    looping over the rows.  At n = NTT_STAGE, where the block's registers
+    leave one block an SM and so nothing else hides a row's loads, each
+    row's limbs are staged by cp.async while the row before it runs; at
+    smaller n two or more blocks an SM overlap each other's loads, and
+    staging (32 n bytes of shared memory taken from the L1 cache) measured
+    slower.  The wrapper stages no row that has a post-scale table, which
+    also measured slower staged (PERF.md)."""
+    n = 1 << log_n
+    if n >= NTT_CLUSTER_MIN and batch * NTT_CLUSTER <= sms:
+        return "cluster", NTT_CLUSTER, False
+    if n > NTT_STAGE:
+        return "persistent", 2, False
+    return "persistent", 1, n == NTT_STAGE
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device.index]
+
+
+def twiddle_words(powers: torch.Tensor) -> torch.Tensor:
+    """The contiguous (n, 4) int32 words of an (8, n) power table, each
+    element's four 32-bit words side by side (one 16-byte load in H3).
+    Cached per table, for as long as the table lives unchanged."""
+    key = id(powers)
+    hit = _TWIDDLE_WORDS.get(key)
+    if hit is not None and hit[0]() is powers and hit[1] == powers._version:
+        return hit[2]
+    limbs = powers.long() & 0xFFFF
+    words = limbs[0::2] | (limbs[1::2] << 16)                       # (4, n)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+    words = words.t().contiguous()
+    _TWIDDLE_WORDS[key] = (weakref.ref(powers, lambda _: _TWIDDLE_WORDS.pop(key, None)),
+                           powers._version, words)
+    return words
+
+
 def ntt(values: torch.Tensor, powers: torch.Tensor, n_inv: Optional[torch.Tensor] = None,
         scale_pre: Optional[torch.Tensor] = None,
         scale_post: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """H3: a radix-2 NTT over the last axis of (..., 8, n) Montgomery values,
+    """H3: an NTT over the last axis of (..., 8, n) Montgomery values,
     batched over the leading axes.  ``powers`` is the (8, n) table w^j of a
     primitive n-th root w (the inverse's: w^-j), ``n_inv`` an optional (8, 1)
     factor (1/n for the inverse), and the scales optional tables on the
     input and the output:
-        out_k = post_k * n_inv * sum_j pre_j * x_j * w^(j k)."""
+        out_k = post_k * n_inv * sum_j pre_j * x_j * w^(j k).
+    The path (``ntt_plan``) follows the batch and n."""
     if values.device.type == "cpu":
         return ntt_plain(values, powers, n_inv, scale_pre, scale_post)
     _check_cuda("ntt", *(t for t in (values, powers, n_inv, scale_pre, scale_post) if t is not None))
@@ -402,9 +454,12 @@ def ntt(values: torch.Tensor, powers: torch.Tensor, n_inv: Optional[torch.Tensor
     out = torch.empty_like(values)
     if out.numel() == 0:
         return out
+    _, cluster, stage = ntt_plan(batch, log_n, _sm_count(values.device))
+    stage = stage and scale_post is None
     err = _entry("ntt")(
-        out.data_ptr(), values.data_ptr(), batch, log_n, powers.data_ptr(), *pre, *post,
-        None if n_inv is None else n_inv.data_ptr(), *_stream(values),
+        out.data_ptr(), values.data_ptr(), batch, log_n, twiddle_words(powers).data_ptr(),
+        *pre, *post, None if n_inv is None else n_inv.data_ptr(), cluster, int(stage),
+        *_stream(values),
     )
     _finish("ntt", err)
     return out

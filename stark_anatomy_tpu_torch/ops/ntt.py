@@ -6,13 +6,14 @@ The JAX package keeps two lowerings (a scan over radix-2 stages and a
 staged four-step transform) that are bit-exact with each other
 (ops/stage_ntt.py:24-25), so only the output values matter.  Here
 :func:`ntt` hands a transform of n <= NTT_MAX points to the H3 wrapper
-(field/kernels.py:ntt): on a CUDA tensor one launch runs the whole
-transform in one thread block per row, on a CPU tensor its plain version
+(field/kernels.py:ntt): on a CUDA tensor one launch runs the whole batch
+(a cluster of blocks per row for a small batch, a persistent grid over
+the rows for a large one), on a CPU tensor its plain version
 ``kernels.ntt_plain`` runs the stages in PyTorch.  The optional pre-scale
 (a coset table, for an LDE), post-scale (an inverse coset table, for
 interpolation) and 1/n of the inverse ride in that launch.
 
-Above NTT_MAX (H3 holds a whole transform in one block's shared memory)
+Above NTT_MAX (H3 holds a whole transform in shared memory)
 ``_four_step`` splits n = n1 * n2, input index j = j1 + n1 j2 and output
 index k = k2 + n2 k1:
 

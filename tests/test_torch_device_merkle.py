@@ -117,12 +117,16 @@ def test_device_rows_gather():
     assert gather_rows(canonical_np(cw), idx) == [vals[i] for i in idx]
 
 
-@pytest.mark.parametrize("n,passes", [(2, 1), (4, 1), (512, 1), (1024, 2), (4096, 2), (1 << 22, 3)])
+@pytest.mark.parametrize("n,passes", [(2, 1), (4, 1), (512, 1), (1024, 2), (4096, 2), (1 << 22, 6)])
 def test_tree_passes_cover_every_level(n, passes):
-    plan = MK.tree_passes(n)
+    # the stages of H4's one launch (commit/kernels.py:tree_stages): three
+    # levels a stage from more than 2048 nodes, eight from more than 256,
+    # then the rest
+    plan = MK.tree_stages(n)
     assert len(plan) == passes
-    assert plan[0] == (n // 2, 0, min(8, (n // 2).bit_length() - 1))
-    assert sum(levels for _, _, levels in plan) == (n // 2).bit_length() - 1
+    depth = (n // 2).bit_length() - 1
+    assert plan[0] == (n // 2, 0, 3 if n // 2 > 2048 else (8 if n // 2 > 256 else depth))
+    assert sum(levels for _, _, levels in plan) == depth
     for (w, off, levels), (w2, off2, _) in zip(plan, plan[1:]):
         assert (w2, off2) == (w >> levels, off + 2 * w - (2 * w >> levels))
 

@@ -1,11 +1,11 @@
-"""The port's four-step NTT and rolling zerofier against its one-block NTT
+"""The port's four-step NTT and rolling zerofier against its single-launch NTT
 and the JAX package's ops/ntt.py.
 
 Above ``ops/ntt.py:NTT_MAX`` points the port runs a four-step transform
 (row transforms of n2 and n1 points, the twiddles, three transposes).
 Here the threshold is lowered to 8, so the same decomposition (recursing
 where a row is still longer than 8) runs on the CPU through the plain
-transform at n = 16 to 4096, and must give the one-block path's values and
+transform at n = 16 to 4096, and must give the single-launch path's values and
 the JAX package's, with pre- and post-scales and batched leading axes.
 ``prefix_zerofier_evals`` must give the JAX function's values.  Field
 arithmetic is exact: equality, no tolerance.

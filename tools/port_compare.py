@@ -39,6 +39,19 @@ builds its kernels, and prints one JSON line:
   ``sign_busy_share``: every kernel the profiler saw in one warm sign,
   PyTorch's included, and the device's busy time over the wall time
   under the profiler (null if it saw no device time);
+* ``kernel_shapes``: H3 and H4 at the shapes where they spend their
+  device time, each kernel's device microseconds per launch (H3) or per
+  commit and per launch in launch order (H4), the medians of the
+  profiler's kernel events over several calls: H3 at the sign's LDE
+  (2, 8, 4096) forward with the pre-scale, and at the four-step's inner
+  transforms of a 2^20 MiMC prove, (4096, 8, 4096) and (2048, 8, 2048),
+  each with the twiddle post-scale and without; H4 at (8, n) for the 2^20
+  path's layers 2^24, 2^20, 2^18 and 2^15, and at n = 4096;
+* ``mimc_prove``: one steady prove of a 2^20-step MiMC chain after
+  ``preprocess`` and a first prove: its wall seconds, and under
+  torch.profiler its wall and device busy seconds and the device
+  milliseconds and launches of H3 (``ntt_kernel``) and H4
+  (``merkle_kernel``);
 * the card's name and power limit (nvidia-smi).
 
 To compare two commits, unpack the older one into a git-ignored
@@ -156,6 +169,111 @@ def launches_by_caller(K, pkg: str, fn) -> dict:
     return {c: dict(per) for c, per in sorted(counts.items(), key=lambda kv: -sum(kv[1].values()))}
 
 
+def kernel_events(fn, tag: str, calls: int):
+    """Per call of ``fn``, the device microseconds of each launch of the
+    kernels whose name holds ``tag``, in launch order (torch.profiler's
+    kernel events); [] per call if the profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.events()
+                if getattr(e, "device_type", None) == DeviceType.CUDA and tag in e.name]
+        hits.sort(key=lambda e: e.time_range.start)
+        out.append([e.time_range.elapsed_us() for e in hits])
+    return out
+
+
+def kernel_shapes(dev) -> dict:
+    """``kernel_shapes`` of the module docstring."""
+    import torch
+
+    from stark_anatomy_tpu_torch.commit import kernels as MK
+    from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.ops.domain import DOMAINS
+
+    def codeword(shape, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randint(0, 1 << 16, shape, generator=gen, device=dev, dtype=torch.int32)
+        x[..., 7, :] &= 0x3FFF                # the top limb below p's: every value < p
+        return x
+
+    def median_per_launch(runs):
+        flat = [us for run in runs for us in run]
+        return statistics.median(flat) if flat else None
+
+    out = {"ntt_device_us": {}, "merkle_device_us": {}}
+    for batch, n, scale in ((2, 4096, "pre"), (4096, 4096, "post"), (4096, 4096, None),
+                            (2048, 2048, "post"), (2048, 2048, None)):
+        x = codeword((batch, 8, n), n + batch)
+        table = codeword((batch, 8, n) if scale == "post" else (8, n), n + batch + 1)
+        powers = DOMAINS.get(n, dev)["fwd_powers"]
+        args = (powers, None, table if scale == "pre" else None, table if scale == "post" else None)
+        runs = kernel_events(lambda: K.ntt(x, *args), "ntt_kernel", 5)
+        out["ntt_device_us"][f"({batch}, 8, {n}){' ' + scale if scale else ''}"] = median_per_launch(runs)
+        del x, table
+        torch.cuda.empty_cache()
+    for n in (1 << 24, 1 << 20, 1 << 18, 1 << 15, 4096):
+        canon = codeword((8, n), 7 + n)
+        runs = kernel_events(lambda: MK.merkle_paired(canon), "merkle_kernel", 5)
+        per_launch = [statistics.median(col) for col in zip(*runs)] if runs and runs[0] else None
+        out["merkle_device_us"][f"(8, {n})"] = {
+            "commit": statistics.median(sum(run) for run in runs) if per_launch else None,
+            "launches": per_launch}
+        del canon
+        torch.cuda.empty_cache()
+    return out
+
+
+def mimc_prove(dev) -> dict:
+    """``mimc_prove`` of the module docstring."""
+    import random
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stark_anatomy_tpu_torch.field.scalar import Field, FieldElement
+    from stark_anatomy_tpu_torch.models import mimc as MM
+
+    field = Field.main()
+    rng = random.Random(2020)
+    mimc, stark = MM.make_stark(1 << 20)
+    tz = stark.preprocess()
+    MM.prove_chain(mimc, stark, FieldElement(rng.randrange(field.p), field), tz)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    MM.prove_chain(mimc, stark, FieldElement(rng.randrange(field.p), field), tz)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    x = FieldElement(rng.randrange(field.p), field)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        MM.prove_chain(mimc, stark, x, tz)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t
+    busy_us, by_kernel = 0.0, {"ntt_kernel": [0, 0.0], "merkle_kernel": [0, 0.0]}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        busy_us += us
+        for tag, acc in by_kernel.items():
+            if tag in e.key:
+                acc[0] += e.count
+                acc[1] += us
+    return {"wall_s": wall, "profiled_wall_s": prof_wall,
+            "device_busy_s": busy_us / 1e6 if busy_us else None,
+            "by_kernel": {tag: {"launches": c, "device_ms": us / 1e3} for tag, (c, us) in by_kernel.items()}}
+
+
 def median_s(fn, runs: int = 5) -> float:
     import torch
 
@@ -245,6 +363,8 @@ def main() -> int:
     sign_kernel_launches = dict(K.LAUNCHES)
     by_caller["verify"] = launches_by_caller(K, pkg, lambda: scheme.verify(pk, doc, sig))
     sign_device_launches, sign_busy_share = device_profile(lambda: scheme.sign(sk, doc))
+    shapes = kernel_shapes(dev)
+    prove = mimc_prove(dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -258,6 +378,7 @@ def main() -> int:
         "host_tree4096_ms": host_tree4096_ms,
         "sign_kernel_launches": sign_kernel_launches, "launches_by_caller": by_caller,
         "sign_device_launches": sign_device_launches, "sign_busy_share": sign_busy_share,
+        "kernel_shapes": shapes, "mimc_prove": prove,
     }))
     return 0
 

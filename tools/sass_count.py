@@ -10,7 +10,7 @@ for the kernels named in KERNELS:
 
 * ``registers``: the registers a thread uses (``cuobjdump -res-usage``);
 * ``instructions``: the kernel's SASS instructions (NOPs left out), and
-  ``opcodes``: the ten most frequent opcodes with their counts;
+  ``opcodes``: every opcode with its count, most frequent first;
 * ``loops``: each backward branch and the instructions from its target to
   it (the loop body as laid out, inner loops included), with the counts
   of the multiply opcodes (``IMAD.WIDE.U32`` and ``IMAD.HI.U32`` are one
@@ -209,8 +209,11 @@ def main() -> int:
             continue
         if kernel == "binary_kernel":
             kernel += "<" + re.search(r"MontMul|AddMod|SubMod", name).group(0) + ">"
+        template = re.search(r"ntt_kernelILi(\d+)ELb(\d)E", name)
+        if template:
+            kernel += f"<{template.group(1)}, {'true' if template.group(2) == '1' else 'false'}>"
         report[kernel] = {"registers": int(registers.get(name, -1)), "instructions": len(instrs),
-                          "opcodes": dict(collections.Counter(i[2] for i in instrs).most_common(10)),
+                          "opcodes": dict(collections.Counter(i[2] for i in instrs).most_common()),
                           "loops": loops(instrs, funcs[(name, "labels")])}
         with open(os.path.join(out_dir, re.sub(r"[<>]", "_", kernel) + ".sass"), "w") as f:
             f.write(f"// Function : {name}\n")
