@@ -16,7 +16,10 @@ Phases (each prints its wall seconds):
    shapes and a ragged one; the H0 ladder ``mont_pow`` the same way for
    the exponents 1, 2, 3, ALPHA_INV, p - 2 and a seeded 128-bit one at
    (2, 8, 1), (8, 4096) and the main shape (e = 2 is the squaring
-   product alone); H2 ``rescue_perm`` (trace and hash) for B = 1, 7 and
+   product alone), x^(p-2) (the fixed inverse chain) through ``F.inv``
+   and ``F.batch_inv`` at (8, 1), (3, 8, 1) and (8, 128), the verifier's
+   x^201 and x^741 at (8, 128), and a seeded exponent of every bit length
+   0-128 at (8, 1); H2 ``rescue_perm`` (trace and hash) for B = 1, 7 and
    4096, random and special states, and the Rescue known-answer vectors.
    The special values are 0, 1, p - 1, p - 2 (its low words are all
    ones, which stresses the carries) and R mod p.  H3 ``ntt`` for every
@@ -26,18 +29,19 @@ Phases (each prints its wall seconds):
    one launch, and N1 against hashlib at n = 4096;
    then each kernel's time per launch (CUDA events) and device time
    (profiler) beside the plain version's time on the card and the bound,
-   and the same for the ladder and ``mont_mul`` at each ladder shape; H4's
+   and the same for the ladder (its record: x^(p-2) at (8, 1), the paths'
+   launch) and ``mont_mul`` at each ladder shape; H4's
    time per commit (one launch a commit), and N1's and hashlib's per tree;
 2. main path: ``FastRPSSS()`` keygen, sign and verify on the card at the
    production parameters; verify must accept, and reject a forged
    document and another key's pk; every kernel must be launched in that
    sign (H7, the batched FRI fold, is launched there too: a sign is a
    batch of one); then one warm-up and three timed signs and verifies,
-   and the kernel launches of one warm sign; the Rescue trace alone,
-   which must be one ``rescue_perm`` launch and no H0/H1 launch; the
-   prover's phase seconds (PhaseTimer) of the timed signs; a device
-   profile of one sign (torch.profiler) and a host one (cProfile, the
-   prover's main steps);
+   and the kernel launches of one warm sign and of one verify; the
+   Rescue trace alone, which must be one ``rescue_perm`` launch and no
+   H0/H1 launch; the prover's phase seconds (PhaseTimer) of the timed
+   signs; a device profile of one sign (torch.profiler) and a host one
+   (cProfile, the prover's main steps);
 3. card against CPU: one seeded sign on the card and one with
    ``device="cpu"`` must give identical bytes, and each must verify the
    other's signature; then the generic prover, ``FastStark.prove`` with
@@ -50,8 +54,10 @@ Phases (each prints its wall seconds):
    the first three levels, a 64-index multiproof), with H4's time per
    commit and N1's, the copy to the host included;
 5. the large-trace path: H5 ``seed_expand`` against its plain version on
-   the card at 2^16 + 1 elements and at the 2^20 path's 2^22 (a seed whose
-   round 0 rejects candidates), H6 ``fri_fold`` at the top round's
+   the card at 1, 2, 3 and 4097 elements, at a tile's edges (1023, 1024
+   and 1025 counters, each as an odd and an even count), at 2^16 + 1
+   (whose deepest round must be 4 or more) and at the 2^20 path's 2^22
+   (a seed whose round 0 rejects candidates), H6 ``fri_fold`` at the top round's
    h = 2^23; H4 at every FRI layer of that path, 2^24 down to 2^15,
    against its plain version on the card and N1's root, with its device
    time per commit and bound; H3's persistent path at the four-step's
@@ -113,8 +119,12 @@ INSTR_PER_S = 4 * 32 * 132 * 1.98e9
 BLAKE2S_INSTR = 10 * 8 * 12
 SHAPES = [(1, 2, 8, 4096), (8, 1024), (8, 1000)]
 MAIN_SHAPE = (1, 2, 8, 4096)
-RESCUE_SHAPE = (2, 8, 1)                 # the Rescue state: the ladder's main shape
+RESCUE_SHAPE = (2, 8, 1)                 # the Rescue state (H2 runs its own x^(1/3) chain)
 LADDER_SHAPES = [RESCUE_SHAPE, (8, 4096), MAIN_SHAPE]
+INV_SHAPES = [(8, 1), (3, 8, 1), (8, 128)]   # x^(p-2): batch_inv's roots, the verifier's (8, 128)
+INV_MAIN = (8, 1)                        # the ladder's launch on the paths: one a verify, one a 2^20 prove
+SHIFT_EXPONENTS = (201, 741)             # the verifier's x^e at (8, 128) (protocols/fast_stark.py:_verify_core)
+SHIFT_SHAPE = (8, 128)
 ALPHA_INV = 180331931428153586757283157844700080811
 DOC = b"chip smoke: FastRPSSS on the card"
 
@@ -157,7 +167,11 @@ PHASES = ("pipeline", "commit", "combination", "fri", "openings")
 # 2^20 steps; its omicron domain is 2^22 and its FRI domain 2^24
 MIMC_STEPS = 1 << 20
 LARGE_KERNELS = ("merkle", "seed_expand", "fri_fold")    # launched on that path, not in a sign
-EXPAND_COUNTS = ((1 << 16) + 1, 1 << 22)    # 2^22: that path's randomizer coefficients
+EXPAND_DEEP = (1 << 16) + 1                 # every seed has counters that need five rounds or more here
+EXPAND_MAIN = 1 << 22                       # the 2^20 path's randomizer coefficients: H5's record
+# of H5's 10 x 8 G steps, 7 of round 0's are the same for every counter
+# and tag: a block computes them once (csrc/merkle.cu:seed_prefix)
+EXPAND_HOISTED_G = 7
 FOLD_HALF = 1 << 23                         # its top FRI round
 NTT_LARGE = (22, 24)                        # log2 of its transforms: the trace iNTT, the LDEs
 # H3's shapes inside those four-step transforms: n1 rows of n2 points
@@ -309,6 +323,30 @@ def ladder_ops(exponent: int) -> int:
     return SQR_OPS * (exponent.bit_length() - 1) + MUL_OPS * (bin(exponent).count("1") - 1)
 
 
+def expand_counts(tile: int) -> tuple:
+    """H5's counts: the smallest, a tile's edges in counters (T - 1, T,
+    T + 1), each as an odd and an even count, 2^16 + 1, and the record."""
+    edges = tuple(2 * c - o for c in (tile - 1, tile, tile + 1) for o in (1, 0))
+    return (1, 2, 3, 4097) + edges + (EXPAND_DEEP, EXPAND_MAIN)
+
+
+def pow_ops(K, exponent: int) -> int:
+    """32-bit operations per element of x^exponent on the route the
+    kernel takes: the fixed chain's squarings and products for p - 2,
+    else the ladder's."""
+    if K.pow_route(exponent) == "inv_chain":
+        return sum(SQR_OPS if a == b else MUL_OPS for _, a, b in K.INV_CHAIN)
+    return ladder_ops(exponent)
+
+
+def pow_links(K, exponent: int) -> int:
+    """Products in one element's dependent chain of x^exponent on the
+    card: the fixed chain for p - 2, else the ladder's."""
+    if K.pow_route(exponent) == "inv_chain":
+        return len(K.INV_CHAIN)
+    return max(exponent.bit_length() - 1, 0) + max(bin(exponent).count("1") - 1, 0)
+
+
 def rescue_ops(batch: int, chain) -> int:
     """32-bit operations of the permutation on ``batch`` states: per round
     and element x^3 (a squaring and a product) and x^ALPHA_INV by the
@@ -448,6 +486,16 @@ def seed_tensor(label: bytes, dev):
     return torch.from_numpy(words).to(dev)
 
 
+def expand_depth(MK, seed, count: int) -> int:
+    """The deepest round tag the plain rejection loop reaches."""
+    ok = MK.below_p_plain(MK.expand_candidates_plain(seed, count, 0))
+    r = 0
+    while not bool(ok.all()):
+        r += 1
+        ok |= MK.below_p_plain(MK.expand_candidates_plain(seed, count, r))
+    return r
+
+
 def profile_all(fn):
     """(wall s, device busy s, {kernel name: (launches, us)}) of one call of
     ``fn`` under torch.profiler; busy is None if it saw no device time."""
@@ -489,24 +537,37 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
     # the compressions its threads need (one per counter and round until
     # both elements are accepted), which the bound counts
     seed = seed_tensor(b"chip smoke seed expansion", dev)
-    for count in EXPAND_COUNTS:
+    for count in expand_counts(MK.EXPAND_TILE):
         got = MK.seed_expand(seed, count)
         torch.cuda.synchronize()
         rounds = []
         want = MK.seed_expand_plain(seed, count, rounds)
-        assert rounds[0] > (count + 1) // 2, "round 0 rejected no candidate: pick another seed"
-        compare("seed_expand", f"count={count} ({rounds[0]} compressions)", got, want)
-    count = EXPAND_COUNTS[-1]
+        if count > 4096:
+            assert rounds[0] > (count + 1) // 2, "round 0 rejected no candidate: pick another seed"
+        label = f"count={count} ({rounds[0]} compressions)"
+        if count == EXPAND_DEEP:
+            depth = expand_depth(MK, seed, count)
+            assert depth >= 4, f"at {count} elements the deepest round is {depth}: pick another seed"
+            label += f", deepest round {depth}"
+        compare("seed_expand", label, got, want)
+    count = EXPAND_MAIN
     ms = time_launches(lambda: MK.seed_expand(seed, count), 20)
     dev_us = profile_kernel("seed_expand", lambda: MK.seed_expand(seed, count), 10)
     plain_ms = time_launches(lambda: MK.seed_expand_plain(seed, count), 1, warm=0)
+    # the work this design does: each compression less the hoisted G
+    # steps, and those steps once a block
+    hoisted = EXPAND_HOISTED_G * BLAKE2S_INSTR // 80
+    blocks = -(-((count + 1) // 2) // MK.EXPAND_TILE)
+    instr = rounds[0] * (BLAKE2S_INSTR - hoisted) + blocks * hoisted
     bytes_ms = (32 * count + 32) / HBM_BYTES_PER_S * 1e3
-    ops_ms = (rounds[0] * BLAKE2S_INSTR / INSTR_PER_S + count * MUL_OPS / INT32_OPS_PER_S) * 1e3
+    ops_ms = (instr / INSTR_PER_S + count * MUL_OPS / INT32_OPS_PER_S) * 1e3
     bound = (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+    unhoisted_ms = (rounds[0] * BLAKE2S_INSTR / INSTR_PER_S + count * MUL_OPS / INT32_OPS_PER_S) * 1e3
     records["seed_expand"] = record("seed_expand", ms, plain_ms, bound)
     print(f"  seed_expand count={count}: {ms:.6f} ms/launch, device {fmt_us(dev_us)}/launch, "
-          f"plain {plain_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}: {rounds[0]} "
-          f"compressions x {BLAKE2S_INSTR} instructions, {count} Montgomery conversions)")
+          f"plain {plain_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}: {rounds[0]} compressions x "
+          f"{BLAKE2S_INSTR - hoisted} instructions + {blocks} blocks x {hoisted}, {count} Montgomery "
+          f"conversions; {unhoisted_ms:.6f} ms at {BLAKE2S_INSTR} a compression) on {smi}")
 
     # H6 at the top round of the 2^20 path
     cw = random_codeword((8, 2 * FOLD_HALF), 3030, dev)
@@ -952,6 +1013,7 @@ def main() -> int:
     from stark_anatomy_tpu_torch.commit.merkle import MerkleTree, open_multi
     from stark_anatomy_tpu_torch.config import RPSSS_CONFIG
     from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field import ops as F
     from stark_anatomy_tpu_torch.field.limbs import R
     from stark_anatomy_tpu_torch.field.scalar import Field, P
     from stark_anatomy_tpu_torch.models.rescue_prime import (
@@ -1020,6 +1082,32 @@ def main() -> int:
             print(f"  mont_pow {shape} e={label}: mismatched elements {mismatch}, max abs limb error {err}")
             worst_mismatch = max(worst_mismatch, mismatch)
             worst_err["mont_pow"] = max(worst_err["mont_pow"], err)
+    # the paths' calls: x^(p-2) by the fixed chain through F.inv and
+    # F.batch_inv (0, 1, p - 1, p - 2 and R among the inputs), the
+    # verifier's shifts, and an exponent of every bit length by the ladder
+    named = ([(shape, P - 2, None) for shape in INV_SHAPES] + [(INV_MAIN, P - 2, [])]
+             + [(SHIFT_SHAPE, e, None) for e in SHIFT_EXPONENTS])
+    rng = random.Random(6)
+    pow_cases = named + [(INV_MAIN, rng.getrandbits(b) | (1 << b >> 1), []) for b in range(129)]
+    for i, (shape, e, special) in enumerate(pow_cases):
+        x_cpu = field_inputs(shape, 320 + i, special=special)[0]     # special=[]: a random value
+        x = x_cpu.to(dev)
+        pairs = [("mont_pow", K.mont_pow(x, e), K.mont_pow_plain(x_cpu, e))]
+        if e == P - 2:
+            pairs += [("F.inv", F.inv(x), K.mont_pow_plain(x_cpu, e)),
+                      ("F.batch_inv", F.batch_inv(x), F.batch_inv(x_cpu))]
+        torch.cuda.synchronize()
+        for via, got, want in pairs:
+            got = got.cpu()
+            assert got.shape == want.shape, (via, got.shape, want.shape)
+            mismatch = int((got != want).any(dim=-2).sum())
+            err = int((got.long() - want.long()).abs().max())
+            if i < len(named) or mismatch:
+                print(f"  {via} {shape} e={'p-2' if e == P - 2 else e} ({K.pow_route(e)}): "
+                      f"mismatched elements {mismatch}, max abs limb error {err}")
+            worst_mismatch = max(worst_mismatch, mismatch)
+            worst_err["mont_pow"] = max(worst_err["mont_pow"], err)
+    print(f"  mont_pow {INV_MAIN}: a seeded exponent of every bit length 0-128 checked (ladder)")
 
     def compare(name, label, got, want):
         nonlocal worst_mismatch
@@ -1118,8 +1206,29 @@ def main() -> int:
               f"plain {plain_ms:.6f} ms, bound {records[name]['bound_ms']:.6f} ms "
               f"({records[name]['bound_by']})")
 
-    # the ladder and the product it chains, at each ladder shape; the
-    # record is the Rescue S-box x^ALPHA_INV on the Rescue state
+    # the ladder at the paths' calls: x^(p-2) by the fixed chain at (8, 1)
+    # (batch_inv's root, one launch a verify and one a 2^20 prove: the
+    # record) and at (8, 128), the verifier's shifts at (8, 128); beside
+    # the bound, the dependent chain's length in products
+    for shape, e in [(INV_MAIN, P - 2), (SHIFT_SHAPE, P - 2)] + [(SHIFT_SHAPE, e) for e in SHIFT_EXPONENTS]:
+        x = field_inputs(shape, 410 + shape[-1])[0].to(dev)
+        numel = x.numel() // 8
+        ms = time_launches(lambda: K.mont_pow(x, e), 100)
+        plain_ms = time_launches(lambda: K.mont_pow_plain(x, e), 3)
+        bound = bound_ms(numel, 2 * x.numel() * 4, pow_ops(K, e))
+        got = profile_kernel("mont_pow", lambda: K.mont_pow(x, e), 50)
+        square_multiply = ""
+        if K.pow_route(e) == "inv_chain":
+            ladder_ms = bound_ms(numel, 2 * x.numel() * 4, ladder_ops(e))[0]
+            square_multiply = f"; {ladder_ms:.9f} ms by square and multiply's {ladder_ops(e)} ops"
+        print(f"  mont_pow e={'p-2' if e == P - 2 else e} at {shape} ({K.pow_route(e)}, a chain of "
+              f"{pow_links(K, e)} products): {ms:.6f} ms/launch, device {fmt_us(got)}/launch, "
+              f"plain {plain_ms:.6f} ms, bound {bound[0]:.9f} ms ({bound[1]}: {pow_ops(K, e)} ops an "
+              f"element{square_multiply}) on {smi}")
+        if shape == INV_MAIN and e == P - 2:
+            records["mont_pow"] = record("mont_pow", ms, plain_ms, bound)
+    # the product the ladder chains, and the ladder, at each ladder shape
+    # (x^ALPHA_INV is on no path: H2 runs its own chain)
     for i, shape in enumerate(LADDER_SHAPES):
         x = field_inputs(shape, 400 + i)[0].to(dev)
         numel = x.numel() // 8
@@ -1133,12 +1242,11 @@ def main() -> int:
             e = exponents[label]
             ms = time_launches(lambda: K.mont_pow(x, e), 100)
             plain_ms = time_launches(lambda: K.mont_pow_plain(x, e), 3)
-            bound = bound_ms(numel, 2 * x.numel() * 4, ladder_ops(e))
+            bound = bound_ms(numel, 2 * x.numel() * 4, pow_ops(K, e))
             got = profile_kernel("mont_pow", lambda: K.mont_pow(x, e), 50)
-            print(f"  mont_pow e={label} at {shape}: {ms:.6f} ms/launch, device {fmt_us(got)}/launch, "
-                  f"plain {plain_ms:.6f} ms, bound {bound[0]:.9f} ms ({bound[1]})")
-            if shape == RESCUE_SHAPE and label == "alpha_inv":
-                records["mont_pow"] = record("mont_pow", ms, plain_ms, bound)
+            print(f"  mont_pow e={label} at {shape}{' (on no path)' if label == 'alpha_inv' else ''}: "
+                  f"{ms:.6f} ms/launch, device {fmt_us(got)}/launch, plain {plain_ms:.6f} ms, "
+                  f"bound {bound[0]:.9f} ms ({bound[1]})")
 
     # H2 at each batch, trace and hash; the record is the main path's
     # trace_batch of one key (B = 1), the only case whose plain version is
@@ -1263,6 +1371,10 @@ def main() -> int:
     scheme.sign(sk, DOC)
     torch.cuda.synchronize()
     print(f"kernel launches in one warm sign: {sum(K.LAUNCHES.values())} {dict(K.LAUNCHES)}")
+    K.reset_launch_counts()
+    assert scheme.verify(pk, DOC, sig)
+    torch.cuda.synchronize()
+    print(f"kernel launches in one verify: {sum(K.LAUNCHES.values())} {dict(K.LAUNCHES)}")
     # the Rescue trace alone: 27 rounds on one 2-element state, one launch
     sk_dev = device_from_ints([sk.value], dev)
     K.reset_launch_counts()

@@ -213,6 +213,7 @@ def merkle_paired_plain(canon: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _P_WORDS = tuple((P >> (32 * k)) & MASK32 for k in range(4))
+EXPAND_TILE = 1024      # counters a block of H5 takes (csrc/merkle.cu:kExpandTile)
 
 
 def seed_expand(seed_words: torch.Tensor, count: int) -> torch.Tensor:
@@ -220,7 +221,9 @@ def seed_expand(seed_words: torch.Tensor, count: int) -> torch.Tensor:
     8 seed words ``seed_words`` (an int32 tensor of the 32-byte seed read
     little-endian), on the seed's device.  With h = ceil(count / 2),
     element i (element h + i) is words 0-3 (4-7) of blake2s(seed || i ||
-    r) for the first round tag r at which that candidate is below p."""
+    r) for the first round tag r at which that candidate is below p.  The
+    kernel gives each block a tile of EXPAND_TILE counters and redraws
+    only the rejected ones, compacted (csrc/merkle.cu)."""
     if seed_words.dtype != torch.int32 or tuple(seed_words.shape) != (8,):
         raise ValueError(f"seed_expand: the seed must be 8 int32 words; "
                          f"got {tuple(seed_words.shape)} {seed_words.dtype}")

@@ -6,7 +6,8 @@
 //   _mm_kernel -> _mont_mul_block), whose default TPU lowering is
 //   field/ops.py:_mont_mul_rows.
 // H0 stark_mont_pow: x^e in Montgomery form for a host exponent e < 2^128,
-//   elementwise, the whole square-and-multiply ladder in one launch.
+//   elementwise, the whole chain in one launch: a fixed addition chain
+//   for the Fermat inverse's p - 2, square-and-multiply for any other e.
 //   Replaces the jnp scan over K0 stark_anatomy_tpu/field/ops.py:mont_pow,
 //   which the Rescue S-box x^(1/3) (models/rescue_prime.py) and the
 //   Fermat inverse x^(p-2) (ops.py:inv, batch_inv) run.
@@ -54,23 +55,30 @@
 //     mont_mul is bound by operations on paper, but on the main path it is
 //     launched on small tensors (a Rescue round runs on 2 elements, the
 //     NTTs on at most 2 x 4096), so launch overhead sets its time.
-//   * The ladder (pow_kernel) runs left-to-right square-and-multiply from
-//     the top bit down, the order of the JAX scan and of the plain
-//     version (the value is exact either way), each squaring by the
-//     squaring product mont_sqr_words (10 word products for a*a, not 16).
-//     The accumulator and x stay in registers for the whole chain, and
-//     the thread stores once.  The exponent is the same for every thread,
-//     so the branch on each bit does not diverge.  What bounds it: at the
-//     Rescue shape (2, 8, 1) the roofline bound is under a nanosecond.
-//     Its time is that of one warp issuing the chain's instructions: about
-//     115 SASS instructions per product, at about 2 cycles each on an H100
-//     SXM (PERF.md, tools/sass_count.py), so 190 products for ALPHA_INV
-//     and 250 for p - 2 take about 25 us and 33 us at 700 W.  Independent
-//     work in the same warp would not overlap: the warp is issue-bound,
-//     not latency-bound.  Shared memory, TMA and the tensor cores have no
-//     role here: each element's 32 bytes are read once and stay in
-//     registers, no data is reused across threads, and the int8 IMMA path
-//     would need 16 byte-limbs and a carry pass for every product of a
+//   * The ladder (pow_kernel) computes x^e for a host exponent in one thread
+//     per element, the accumulator and x in registers for the whole chain,
+//     one store.  Where e = p - 2 (the Fermat inverse, the only exponent of
+//     the measured paths above 2^10: batch_inv's root, one launch a verify
+//     and one a 2^20 prove) it runs the fixed chain pow_inv, 154 products
+//     (136 squarings, 18 multiplies) in place of the 250 of
+//     square-and-multiply over p - 2's 124 one bits; every other exponent
+//     runs left-to-right square-and-multiply from the top bit down (the
+//     order of the JAX scan and of the plain version; the value is exact
+//     either way).  Both run on the carry-flag product forms
+//     (mont_mul_chain, mont_sqr_chain), which beat the plain-word ones on a
+//     dependent chain of x^(p-2) on one thread (PERF.md).  The launcher
+//     takes the chain itself when the exponent is p - 2.  The exponent is
+//     the same for every thread, so the branch on each bit does not diverge.
+//     What bounds it: at (8, 1) and (8, 128), the shapes the paths launch it
+//     at, the roofline bound is under a nanosecond; the time is the latency
+//     of one thread's dependent chain, its length in products times the
+//     latency of one, so the design shortens the chain and each link: on an
+//     H100 one x^(p-2) took 34.4 us by square and multiply on the plain-word
+//     forms (138 ns a link) and 14.2 us by the fixed chain on the carry-flag
+//     forms (92 ns a link; PERF.md).  Shared memory, TMA and the tensor
+//     cores have no role here: each element's 32 bytes are read once and
+//     stay in registers, no data is reused across threads, and the int8 IMMA
+//     path would need 16 byte-limbs and a carry pass for every product of a
 //     serial chain.  Blocks are small (kPowThreads) so that a launch of a
 //     few thousand elements spreads over many SMs.
 //   * H1 is bound by memory: 96 bytes per element (two 32-byte inputs,
@@ -190,40 +198,6 @@ __global__ void __launch_bounds__(256)
     load4(b, bi, j, bw);
     Op()(aw, bw, rw);
     store4(out, bi, j, n, rw);
-  }
-}
-
-// acc = x^e, e = e_hi * 2^64 + e_lo of nbits bits (0 <= nbits <= 128;
-// nbits = 0 gives the Montgomery one).  Left-to-right square and multiply
-// from the top bit down.  acc must not alias x.
-__device__ __forceinline__ void mont_pow_words(const uint32_t x[4], uint64_t e_lo,
-                                               uint64_t e_hi, int nbits,
-                                               uint32_t acc[4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) acc[k] = nbits == 0 ? one_mont_word(k) : x[k];
-#pragma unroll 1
-  for (int i = nbits - 2; i >= 0; --i) {
-    mont_sqr_words(acc, acc);
-    const uint64_t word = i >= 64 ? e_hi >> (i - 64) : e_lo >> i;
-    if (word & 1u) mont_mul_words(acc, x, acc);
-  }
-}
-
-constexpr int kPowThreads = 64;
-
-// out = x^e, e = e_hi * 2^64 + e_lo of nbits bits (0 <= nbits <= 128).
-__global__ void __launch_bounds__(kPowThreads)
-    pow_kernel(int32_t* __restrict__ out, Operand x, int64_t batch, int64_t n,
-               uint64_t e_lo, uint64_t e_hi, int nbits) {
-  const int64_t total = batch * n;
-  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t bi = idx / n;
-    const int64_t j = idx - bi * n;
-    uint32_t xw[4], acc[4];
-    load4(x, bi, j, xw);
-    mont_pow_words(xw, e_lo, e_hi, nbits, acc);
-    store4(out, bi, j, n, acc);
   }
 }
 
@@ -415,11 +389,52 @@ __device__ __forceinline__ void staged_words(const int32_t* stage, int n, int j,
   }
 }
 
-// H3's Montgomery product: the value of mont_mul_words (field_arith.cuh),
-// with the carries of its word sums on the carry flag (PTX add.cc / madc
-// chains) in place of 64-bit sums split back into words: 65 PTX
-// instructions (more in SASS, where a high half with a carry in is an
-// IMAD.HI and an IADD3.X) and no 64-bit temporaries, so fewer live
+// The one-step Montgomery reduction of mont_reduce in PTX: from the
+// product T in registers t0..t7 to r = T * 2^-128 mod p in operands %0..%3
+// (the carry-flag forms below declare t<8>, m<4>, q<4>, d<4>, c3, kk, w,
+// ov, bb and the predicate keep).
+#define STARK_MONT_REDUCE_PTX \
+  /* m = c3 * 2^96 - T_lo mod 2^128, c3 = t0 * kP3; kk = -(its borrow) */ \
+  "mul.lo.u32 c3, t0, 0xCB800000;\n\t" \
+  "sub.cc.u32 m0, 0, t0;\n\t" \
+  "subc.cc.u32 m1, 0, t1;\n\t" \
+  "subc.cc.u32 m2, 0, t2;\n\t" \
+  "subc.cc.u32 m3, c3, t3;\n\t" \
+  "subc.u32 kk, 0, 0;\n\t" \
+  /* q = (m * kP3 + c3) / 2^32 (the low word of the sum is 0) */ \
+  "mad.lo.cc.u32 w, m0, 0xCB800000, c3;\n\t" \
+  "madc.lo.cc.u32 q0, m1, 0xCB800000, 0;\n\t" \
+  "madc.lo.cc.u32 q1, m2, 0xCB800000, 0;\n\t" \
+  "madc.lo.cc.u32 q2, m3, 0xCB800000, 0;\n\t" \
+  "addc.u32 q3, 0, 0;\n\t" \
+  "mad.hi.cc.u32 q0, m0, 0xCB800000, q0;\n\t" \
+  "madc.hi.cc.u32 q1, m1, 0xCB800000, q1;\n\t" \
+  "madc.hi.cc.u32 q2, m2, 0xCB800000, q2;\n\t" \
+  "madc.hi.u32 q3, m3, 0xCB800000, q3;\n\t" \
+  /* r = T_hi + q + borrow (the carry flag set from kk), with its 2^128 bit */ \
+  "add.cc.u32 w, kk, kk;\n\t" \
+  "addc.cc.u32 t4, t4, q0;\n\t" \
+  "addc.cc.u32 t5, t5, q1;\n\t" \
+  "addc.cc.u32 t6, t6, q2;\n\t" \
+  "addc.cc.u32 t7, t7, q3;\n\t" \
+  "addc.u32 ov, 0, 0;\n\t" \
+  /* r - p, kept where r >= p (or r has its 2^128 bit) */ \
+  "sub.cc.u32 d0, t4, 1;\n\t" \
+  "subc.cc.u32 d1, t5, 0;\n\t" \
+  "subc.cc.u32 d2, t6, 0;\n\t" \
+  "subc.cc.u32 d3, t7, 0xCB800000;\n\t" \
+  "subc.u32 bb, ov, 0;\n\t" \
+  "setp.lt.s32 keep, bb, 0;\n\t" \
+  "selp.b32 %0, t4, d0, keep;\n\t" \
+  "selp.b32 %1, t5, d1, keep;\n\t" \
+  "selp.b32 %2, t6, d2, keep;\n\t" \
+  "selp.b32 %3, t7, d3, keep;\n\t"
+
+// H3's and the ladder's Montgomery product: the value of mont_mul_words
+// (field_arith.cuh), with the carries of its word sums on the carry flag
+// (PTX add.cc / madc chains) in place of 64-bit sums split back into
+// words: 65 PTX instructions (more in SASS, where a high half with a
+// carry in is an IMAD.HI and an IADD3.X) and no 64-bit temporaries, so fewer live
 // registers: at the 128-register cap of H3's 512-thread blocks
 // mont_mul_words spilled more and ran slower.  T = a*b row by row (the
 // low halves of a*b_i in one carry chain, the high halves in a second),
@@ -472,47 +487,152 @@ __device__ __forceinline__ void mont_mul_chain(const uint32_t a[4], const uint32
       "madc.hi.cc.u32 t5, %5, %11, t5;\n\t"
       "madc.hi.cc.u32 t6, %6, %11, t6;\n\t"
       "madc.hi.u32 t7, %7, %11, t7;\n\t"
-      // m = c3 * 2^96 - T_lo mod 2^128, c3 = t0 * kP3; kk = -(its borrow)
-      "mul.lo.u32 c3, t0, 0xCB800000;\n\t"
-      "sub.cc.u32 m0, 0, t0;\n\t"
-      "subc.cc.u32 m1, 0, t1;\n\t"
-      "subc.cc.u32 m2, 0, t2;\n\t"
-      "subc.cc.u32 m3, c3, t3;\n\t"
-      "subc.u32 kk, 0, 0;\n\t"
-      // q = (m * kP3 + c3) / 2^32 (the low word of the sum is 0)
-      "mad.lo.cc.u32 w, m0, 0xCB800000, c3;\n\t"
-      "madc.lo.cc.u32 q0, m1, 0xCB800000, 0;\n\t"
-      "madc.lo.cc.u32 q1, m2, 0xCB800000, 0;\n\t"
-      "madc.lo.cc.u32 q2, m3, 0xCB800000, 0;\n\t"
-      "addc.u32 q3, 0, 0;\n\t"
-      "mad.hi.cc.u32 q0, m0, 0xCB800000, q0;\n\t"
-      "madc.hi.cc.u32 q1, m1, 0xCB800000, q1;\n\t"
-      "madc.hi.cc.u32 q2, m2, 0xCB800000, q2;\n\t"
-      "madc.hi.u32 q3, m3, 0xCB800000, q3;\n\t"
-      // r = T_hi + q + borrow (the carry flag set from kk), with its 2^128 bit
-      "add.cc.u32 w, kk, kk;\n\t"
-      "addc.cc.u32 t4, t4, q0;\n\t"
-      "addc.cc.u32 t5, t5, q1;\n\t"
-      "addc.cc.u32 t6, t6, q2;\n\t"
-      "addc.cc.u32 t7, t7, q3;\n\t"
-      "addc.u32 ov, 0, 0;\n\t"
-      // r - p, kept where r >= p (or r has its 2^128 bit)
-      "sub.cc.u32 d0, t4, 1;\n\t"
-      "subc.cc.u32 d1, t5, 0;\n\t"
-      "subc.cc.u32 d2, t6, 0;\n\t"
-      "subc.cc.u32 d3, t7, 0xCB800000;\n\t"
-      "subc.u32 bb, ov, 0;\n\t"
-      "setp.lt.s32 keep, bb, 0;\n\t"
-      "selp.b32 %0, t4, d0, keep;\n\t"
-      "selp.b32 %1, t5, d1, keep;\n\t"
-      "selp.b32 %2, t6, d2, keep;\n\t"
-      "selp.b32 %3, t7, d3, keep;\n\t"
+      STARK_MONT_REDUCE_PTX
       "}"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "r"(b[2]), "r"(b[3]));
 #else
   mont_mul_words(a, b, r);
 #endif
+}
+
+// The squaring product in the same carry-flag form: the value of
+// mont_sqr_words (10 word products for T = a*a in place of 16), then the
+// reduction of mont_mul_chain.  The six cross products a_i a_j (i < j)
+// by rows in carry chains into s1..s6 (their sum C is below 2^224), C
+// doubled by one add chain into s1..s7, then the four squares a_i^2 added
+// along it.  Every partial sum is a sum of some of T's terms, so no carry
+// is lost where a chain ends without .cc.  r may alias a.  A host
+// compiler takes mont_sqr_words.
+__device__ __forceinline__ void mont_sqr_chain(const uint32_t a[4], uint32_t r[4]) {
+#ifdef __CUDACC__
+  asm("{\n\t"
+      ".reg .u32 t<8>, s<8>, m<4>, q<4>, d<4>, c3, kk, w, ov, bb;\n\t"
+      ".reg .pred keep;\n\t"
+      // row 0: s1..s4 = a0 * (a1, a2, a3)
+      "mul.lo.u32 s1, %4, %5;\n\t"
+      "mul.lo.u32 s2, %4, %6;\n\t"
+      "mul.lo.u32 s3, %4, %7;\n\t"
+      "mad.hi.cc.u32 s2, %4, %5, s2;\n\t"
+      "madc.hi.cc.u32 s3, %4, %6, s3;\n\t"
+      "madc.hi.u32 s4, %4, %7, 0;\n\t"
+      // row 1: s3..s5 += a1 * (a2, a3)
+      "mad.lo.cc.u32 s3, %5, %6, s3;\n\t"
+      "madc.lo.cc.u32 s4, %5, %7, s4;\n\t"
+      "addc.u32 s5, 0, 0;\n\t"
+      "mad.hi.cc.u32 s4, %5, %6, s4;\n\t"
+      "madc.hi.u32 s5, %5, %7, s5;\n\t"
+      // row 2: s5..s6 += a2 * a3
+      "mad.lo.cc.u32 s5, %6, %7, s5;\n\t"
+      "madc.hi.u32 s6, %6, %7, 0;\n\t"
+      // 2C into s1..s7
+      "add.cc.u32 s1, s1, s1;\n\t"
+      "addc.cc.u32 s2, s2, s2;\n\t"
+      "addc.cc.u32 s3, s3, s3;\n\t"
+      "addc.cc.u32 s4, s4, s4;\n\t"
+      "addc.cc.u32 s5, s5, s5;\n\t"
+      "addc.cc.u32 s6, s6, s6;\n\t"
+      "addc.u32 s7, 0, 0;\n\t"
+      // T = 2C + sum a_i^2 2^(64 i)
+      "mul.lo.u32 t0, %4, %4;\n\t"
+      "mad.hi.cc.u32 t1, %4, %4, s1;\n\t"
+      "madc.lo.cc.u32 t2, %5, %5, s2;\n\t"
+      "madc.hi.cc.u32 t3, %5, %5, s3;\n\t"
+      "madc.lo.cc.u32 t4, %6, %6, s4;\n\t"
+      "madc.hi.cc.u32 t5, %6, %6, s5;\n\t"
+      "madc.lo.cc.u32 t6, %7, %7, s6;\n\t"
+      "madc.hi.u32 t7, %7, %7, s7;\n\t"
+      STARK_MONT_REDUCE_PTX
+      "}"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]));
+#else
+  mont_sqr_words(a, r);
+#endif
+}
+
+// r = a^(2^k), k >= 1 squarings.  r may alias a.
+__device__ __forceinline__ void sqr_run(const uint32_t a[4], int k, uint32_t r[4]) {
+  mont_sqr_chain(a, r);
+#pragma unroll 1
+  for (int i = 1; i < k; ++i) mont_sqr_chain(r, r);
+}
+
+// acc = x^(p-2), the Fermat inverse (0 gives 0), by the fixed chain
+// INV_CHAIN of field/kernels.py, step for step (tests/test_torch_inv_chain.py
+// reads this body and holds it against the list): 136 squarings and 18
+// products, 154 in all, against the ladder's 127 + 123 = 250.  p - 2 =
+// 406 * 2^119 + (2^119 - 1): x^(2^m - 1) for m = 2, 3, 5, 10, 11 first
+// (10 squarings, 5 products), then x^203 from x^3 (6 squarings, 2
+// products), then the zero bit and the 119 ones as blocks of 10, 10 and
+// nine of 11, each m squarings and a product by x^(2^m - 1).  The table
+// and the top are independent after x^3, so their chains overlap; the
+// dependent chain is about 141 links.  acc must not alias x.
+__device__ __forceinline__ void pow_inv(const uint32_t x[4], uint32_t acc[4]) {
+  uint32_t x3[4], x7[4], x31[4], x1023[4], x2047[4];
+  mont_sqr_chain(x, x3);
+  mont_mul_chain(x3, x, x3);              // x^3 = x^(2^2 - 1)
+  sqr_run(x3, 1, x7);
+  mont_mul_chain(x7, x, x7);              // x^(2^3 - 1)
+  sqr_run(x7, 2, x31);
+  mont_mul_chain(x31, x3, x31);           // x^(2^5 - 1)
+  sqr_run(x31, 5, x1023);
+  mont_mul_chain(x1023, x31, x1023);      // x^(2^10 - 1)
+  sqr_run(x1023, 1, x2047);
+  mont_mul_chain(x2047, x, x2047);        // x^(2^11 - 1)
+  sqr_run(x3, 3, acc);
+  mont_mul_chain(acc, x, acc);            // x^25
+  sqr_run(acc, 3, acc);
+  mont_mul_chain(acc, x3, acc);           // x^203
+  sqr_run(acc, 11, acc);
+  mont_mul_chain(acc, x1023, acc);        // x^(406 * 2^10 + 2^10 - 1)
+  sqr_run(acc, 10, acc);
+  mont_mul_chain(acc, x1023, acc);        // x^(406 * 2^20 + 2^20 - 1)
+#pragma unroll 1
+  for (int i = 0; i < 9; ++i) {
+    sqr_run(acc, 11, acc);
+    mont_mul_chain(acc, x2047, acc);      // 11 more ones
+  }
+}
+
+// acc = x^e, e = e_hi * 2^64 + e_lo of nbits bits (0 <= nbits <= 128;
+// nbits = 0 gives the Montgomery one).  Left-to-right square and multiply
+// from the top bit down.  acc must not alias x.
+__device__ __forceinline__ void mont_pow_words(const uint32_t x[4], uint64_t e_lo,
+                                               uint64_t e_hi, int nbits,
+                                               uint32_t acc[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[k] = nbits == 0 ? one_mont_word(k) : x[k];
+#pragma unroll 1
+  for (int i = nbits - 2; i >= 0; --i) {
+    mont_sqr_chain(acc, acc);
+    const uint64_t word = i >= 64 ? e_hi >> (i - 64) : e_lo >> i;
+    if (word & 1u) mont_mul_chain(acc, x, acc);
+  }
+}
+
+constexpr int kPowThreads = 64;
+
+// out = x^e: by the fixed chain pow_inv where kInv (e = p - 2), else by
+// the ladder over e = e_hi * 2^64 + e_lo of nbits bits (0 <= nbits <= 128).
+template <bool kInv>
+__global__ void __launch_bounds__(kPowThreads)
+    pow_kernel(int32_t* __restrict__ out, Operand x, int64_t batch, int64_t n,
+               uint64_t e_lo, uint64_t e_hi, int nbits) {
+  const int64_t total = batch * n;
+  for (int64_t idx = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       idx < total; idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t bi = idx / n;
+    const int64_t j = idx - bi * n;
+    uint32_t xw[4], acc[4];
+    load4(x, bi, j, xw);
+    if constexpr (kInv) {
+      pow_inv(xw, acc);
+    } else {
+      mont_pow_words(xw, e_lo, e_hi, nbits, acc);
+    }
+    store4(out, bi, j, n, acc);
+  }
 }
 
 // The twiddle omega^e from the packed table (one 16-byte load through the
@@ -958,18 +1078,21 @@ int stark_sub_mod(void* out, const void* a, const void* b, int64_t batch,
 }
 
 // x: contiguous (batch, 8, n).  e = e_hi * 2^64 + e_lo, nbits its bit
-// length (0 gives the Montgomery one).
+// length (0 gives the Montgomery one).  e = p - 2 runs the fixed chain of
+// x^(p-2), any other e the ladder (field/kernels.py:pow_route states the
+// same rule).
 int stark_mont_pow(void* out, const void* x, int64_t batch, int64_t n,
-                   uint64_t e_lo, uint64_t e_hi, int nbits, void* stream,
-                   int device) {
+                   uint64_t e_lo, uint64_t e_hi, int nbits, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (nbits < 0 || nbits > 128) return static_cast<int>(cudaErrorInvalidValue);
+  // p - 2 = 0xCB7FFFFF FFFFFFFF FFFFFFFF FFFFFFFF
+  const bool inv = e_lo == ~uint64_t(0) && e_hi == (uint64_t(kP3) << 32) - 1 && nbits == 128;
   const int64_t total = batch * n;
   if (total <= 0) return 0;
   Operand ox{static_cast<const int32_t*>(x), 8 * n, n, 1};
-  pow_kernel<<<grid_for(total, kPowThreads), kPowThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = inv ? pow_kernel<true> : pow_kernel<false>;
+  kernel<<<grid_for(total, kPowThreads), kPowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int32_t*>(out), ox, batch, n, e_lo, e_hi, nbits);
   return static_cast<int>(cudaGetLastError());
 }

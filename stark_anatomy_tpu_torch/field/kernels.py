@@ -2,8 +2,10 @@
 
 H0 ``mont_mul`` replaces the JAX package's only TPU kernel, K0
 (stark_anatomy_tpu/field/pallas_kernels.py:mont_mul_pallas_core), and H0
-``mont_pow`` runs a whole square-and-multiply ladder over it in one launch
-(in place of the jnp scan stark_anatomy_tpu/field/ops.py:mont_pow).  H1
+``mont_pow`` runs a whole x^e over it in one launch (in place of the jnp
+scan stark_anatomy_tpu/field/ops.py:mont_pow): the fixed chain INV_CHAIN
+for the Fermat inverse x^(p-2), square and multiply for any other
+exponent (``pow_route``).  H1
 ``add_mod`` and ``sub_mod`` replace the jnp row functions
 field/limb_arith.py:add_mod_rows and sub_mod_rows.  H2
 ``rescue_permutation`` runs the whole Rescue-Prime permutation in one
@@ -83,6 +85,28 @@ ALPHA_INV_CHAIN = (
     # each lower byte b: acc <- acc^256 * x^b
     + [step for byte in (0xAA,) * 14 + (0xAB,)
        for step in [("acc", "acc", "acc")] * 8 + [("acc", "acc", f"x{byte}")]]
+)
+
+
+def _run(out: str, src: str, k: int, factor: str) -> list:
+    """Steps out = src^(2^k) * factor: k squarings, then a product."""
+    return [(out, src, src)] + [(out, out, out)] * (k - 1) + [(out, out, factor)]
+
+
+# The Fermat inverse x^(p-2), p - 2 = 406 * 2^119 + (2^119 - 1) (128 bits,
+# 124 of them ones), by a fixed chain in the same step form: x^(2^m - 1)
+# for m = 2, 3, 5, 10, 11, then x^203 from x^3, then the zero bit and the
+# 119 ones in blocks of 10, 10 and nine of 11 (each m squarings and a
+# product by x^(2^m - 1)).  136 squarings and 18 products, 154 against the
+# ladder's 250 (127 + 123).  csrc/field.cu:pow_inv runs the same steps;
+# the plain ladder mont_pow_plain stays the independent yardstick.
+INV_CHAIN = (
+    [("x3", "x", "x"), ("x3", "x3", "x")]                         # x^(2^2 - 1)
+    + _run("x7", "x3", 1, "x") + _run("x31", "x7", 2, "x3")
+    + _run("x1023", "x31", 5, "x31") + _run("x2047", "x1023", 1, "x")
+    + _run("acc", "x3", 3, "x") + _run("acc", "acc", 3, "x3")     # x^25, x^203
+    + _run("acc", "acc", 11, "x1023") + _run("acc", "acc", 10, "x1023")
+    + [step for _ in range(9) for step in _run("acc", "acc", 11, "x2047")]
 )
 NTT_MAX = 8192          # H3 holds a whole transform in shared memory (one block or a cluster)
 NTT_CLUSTER = 8         # blocks a transform is spread over when the batch cannot fill the card
@@ -280,9 +304,19 @@ def exponent_words(exponent: int) -> Tuple[int, int, int]:
     return exponent & ((1 << 64) - 1), exponent >> 64, exponent.bit_length()
 
 
+def pow_route(exponent: int) -> str:
+    """The kernel's path for x^exponent: "inv_chain", the fixed chain
+    INV_CHAIN, for the Fermat inverse's p - 2; "ladder", square and
+    multiply over the exponent's bits, for any other.  csrc/field.cu's
+    launcher (stark_mont_pow) picks by the same rule."""
+    exponent_words(exponent)
+    return "inv_chain" if exponent == P - 2 else "ladder"
+
+
 def mont_pow(x: torch.Tensor, exponent: int) -> torch.Tensor:
     """H0 ladder: x^exponent in Montgomery form, elementwise, for a host
-    integer 0 <= exponent < 2^128 (exponent 0 gives the Montgomery one)."""
+    integer 0 <= exponent < 2^128 (exponent 0 gives the Montgomery one);
+    on the card by the path ``pow_route`` names."""
     words = exponent_words(exponent)
     if x.device.type == "cpu":
         return mont_pow_plain(x, exponent)
@@ -301,10 +335,11 @@ def mont_pow(x: torch.Tensor, exponent: int) -> torch.Tensor:
     return out
 
 
-def run_chain(x, mul):
-    """The result of ALPHA_INV_CHAIN from x, with ``mul`` as the product."""
+def run_chain(x, mul, chain=ALPHA_INV_CHAIN):
+    """The result of ``chain`` (ALPHA_INV_CHAIN or INV_CHAIN) from x, with
+    ``mul`` as the product."""
     values = {"x": x}
-    for out, a, b in ALPHA_INV_CHAIN:
+    for out, a, b in chain:
         values[out] = mul(values[a], values[b])
     return values["acc"]
 

@@ -15,7 +15,8 @@ PORT = os.path.join(ROOT, "stark_anatomy_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "stark_anatomy_tpu")
 
 
-PORT_TOOLS = ("tools/port_compare.py", "tools/port_interleave.py", "tools/sass_count.py")
+PORT_TOOLS = ("tools/port_compare.py", "tools/port_interleave.py", "tools/sass_count.py",
+              "tools/port_fri_branch.py", "tools/preprocess_steps.py")
 
 
 def port_sources():

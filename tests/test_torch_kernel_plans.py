@@ -11,12 +11,20 @@ and must equal the JAX package's ``ntt_core``.  The tree model runs H4's
 stages as csrc/merkle.cu:merkle_kernel does (the leaf blocks, the levels
 through shared memory, the last-block-done tickets in a seeded finishing
 order, the levels inside one warp by shuffles) and must equal the plain
-version and the JAX package's flat tree.  The wrapper's path choice is a
-plain function, tested here.  Tolerance: zero (exact field arithmetic and
-exact hashing).
+version and the JAX package's flat tree.  The seed-expansion model runs
+H5's tile plan as csrc/merkle.cu:seed_expand_kernel does (round 0 over a
+tile of counters, from the state seed_prefix leaves; the queue of
+counters with the mask of their elements still needed, in a seeded order
+of arrival, round by round; the final positions of both candidates) and
+must equal the JAX package's expansion and the plain version's count of
+compressions.  The wrapper's path choice is a plain function, tested here.
+Tolerance: zero (exact field arithmetic and exact hashing).
 """
 
+import hashlib
+import os
 import random
+import re
 
 import numpy as np
 import pytest
@@ -27,11 +35,13 @@ from stark_anatomy_tpu.ops import ntt as JN
 from stark_anatomy_tpu.ops.domain import DOMAINS as JDOMAINS
 from stark_anatomy_tpu.utils.convert import device_from_ints as jfrom
 from stark_anatomy_tpu.utils.convert import ints_from_device as jints
+from stark_anatomy_tpu.utils import rand as JR
 from stark_anatomy_tpu_torch.commit import kernels as MK
 from stark_anatomy_tpu_torch.field import kernels as K
 from stark_anatomy_tpu_torch.field.limbs import R
 from stark_anatomy_tpu_torch.field.scalar import P
 from stark_anatomy_tpu_torch.ops.domain import DOMAINS
+from stark_anatomy_tpu_torch.utils.convert import ints_from_device as tints
 
 torch.set_num_threads(1)
 
@@ -313,3 +323,147 @@ def test_tree_counters_count_every_later_block(n):
     for (w, _, levels), (w2, _, _) in zip(stages, stages[1:]):
         assert levels == (MK.STAGE_LEVELS if w > MK.WIDE_STAGE else MK.TREE_LEVELS)
         assert w2 == w >> levels and MK.stage_blocks(w2) == max(1, MK.stage_blocks(w) >> levels)
+
+
+# ---------------------------------------------------------------------------
+# H5: the tile plan of one launch
+# ---------------------------------------------------------------------------
+
+M32 = 0xFFFFFFFF
+MERKLE_CU = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "stark_anatomy_tpu_torch", "csrc", "merkle.cu")
+
+
+def _g(v, a, b, c, d, x, y):
+    rotr = lambda w, n: ((w >> n) | (w << (32 - n))) & M32
+    v[a] = (v[a] + v[b] + x) & M32
+    v[d] = rotr(v[d] ^ v[a], 16)
+    v[c] = (v[c] + v[d]) & M32
+    v[b] = rotr(v[b] ^ v[c], 12)
+    v[a] = (v[a] + v[b] + y) & M32
+    v[d] = rotr(v[d] ^ v[a], 8)
+    v[c] = (v[c] + v[d]) & M32
+    v[b] = rotr(v[b] ^ v[c], 7)
+
+
+def seed_prefix(key):
+    """csrc/merkle.cu:seed_prefix: the state of a 40-byte compression of
+    the seed after round 0's column step and three of its diagonal steps
+    (message words 10-15 zero)."""
+    v = list(MK._H) + list(MK._IV)
+    v[12] ^= 40
+    v[14] ^= M32
+    m = list(key) + [0] * 8
+    for a, b, c, d, i in ((0, 4, 8, 12, 0), (1, 5, 9, 13, 2), (2, 6, 10, 14, 4), (3, 7, 11, 15, 6),
+                          (1, 6, 11, 12, 10), (2, 7, 8, 13, 12), (3, 4, 9, 14, 14)):
+        _g(v, a, b, c, d, m[i], m[i + 1])
+    return v
+
+
+def seed_compress(prefix, key, ctr, tag):
+    """csrc/merkle.cu:seed_compress: round 0's step on (0, 5, 10, 15), which
+    reads the counter and the round tag, then rounds 1-9."""
+    v = list(prefix)
+    m = list(key) + [ctr, tag] + [0] * 6
+    _g(v, 0, 5, 10, 15, m[8], m[9])
+    for s in MK._SIGMA[1:]:
+        for k, (a, b, c, d) in enumerate(((0, 4, 8, 12), (1, 5, 9, 13), (2, 6, 10, 14), (3, 7, 11, 15),
+                                          (0, 5, 10, 15), (1, 6, 11, 12), (2, 7, 8, 13), (3, 4, 9, 14))):
+            _g(v, a, b, c, d, m[s[2 * k]], m[s[2 * k + 1]])
+    return [MK._H[k] ^ v[k] ^ v[k + 8] for k in range(8)]
+
+
+def _value(words):
+    return sum(w << (32 * k) for k, w in enumerate(words))
+
+
+def expand_tile_model(key, count, seed):
+    """H5's plan: (canonical values, compressions, deepest round tag, the
+    queue lengths of each tile by round).  Each block owns EXPAND_TILE
+    counters; round 0 hashes all of them and keeps both candidates; a
+    counter with a candidate >= p is queued with its mask (bit 0: element
+    i, bit 1: element h + i), the warps arriving in a seeded order; each
+    later round hashes the queue, keeps the candidates it accepts and
+    queues the rest; then element i and h + i are written from the tile."""
+    tile, half = MK.EXPAND_TILE, (count + 1) // 2
+    prefix = seed_prefix(key)
+    rng = random.Random(seed)
+    values, compressions, depth, lengths = [None] * count, 0, 0, []
+    for first in range(0, half, tile):
+        n = min(tile, half - first)
+        cand = [[None] * n, [None] * n]
+        queue = []
+        for c in range(n):
+            d = seed_compress(prefix, key, first + c, 0)
+            cand[0][c], cand[1][c] = d[:4], d[4:]
+            pair = half + first + c < count
+            need = (_value(d[:4]) >= P) | (2 if pair and _value(d[4:]) >= P else 0)
+            if need:
+                queue.append((c, need))
+        compressions += n
+        rounds, r = [n], 0
+        while queue:
+            r += 1
+            rng.shuffle(queue)
+            rounds.append(len(queue))
+            compressions += len(queue)
+            following = []
+            for c, need in queue:
+                assert need in (1, 2, 3) and (need < 2 or half + first + c < count)
+                d = seed_compress(prefix, key, first + c, r)
+                for e in (0, 1):
+                    if need >> e & 1 and _value(d[4 * e:4 * e + 4]) < P:
+                        cand[e][c] = d[4 * e:4 * e + 4]
+                        need &= ~(1 << e)
+                if need:
+                    following.append((c, need))
+            queue = following
+        depth, lengths = max(depth, r), lengths + [rounds]
+        for c in range(n):
+            values[first + c] = _value(cand[0][c])
+            if half + first + c < count:
+                values[half + first + c] = _value(cand[1][c])
+    assert all(v is not None and v < P for v in values)
+    return values, compressions, depth, lengths
+
+
+def _seed(k):
+    return hashlib.blake2s(b"tile model seed %d" % k).digest()
+
+
+def test_expand_tile_matches_the_source():
+    text = open(MERKLE_CU).read()
+    assert int(re.search(r"constexpr int kExpandTile = (\d+);", text).group(1)) == MK.EXPAND_TILE
+
+
+@pytest.mark.parametrize("ctr,tag", [(0, 0), (1, 0), (5, 3), (0xFFFFFFFF, 7), (123456, 0xFFFFFFFF)])
+def test_seed_compress_split_equals_blake2s(ctr, tag):
+    seed = _seed(ctr % 5)
+    key = list(np.frombuffer(seed, dtype="<u4").astype(int))
+    got = seed_compress(seed_prefix(key), key, ctr, tag)
+    msg = seed + ctr.to_bytes(4, "little") + tag.to_bytes(4, "little")
+    assert bytes(np.array(got, dtype="<u4").tobytes()) == hashlib.blake2s(msg).digest()
+
+
+T = MK.EXPAND_TILE
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, T - 1, T + 1, 2 * T - 1, 2 * T, 2 * T + 1, 2 * T + 2, 4097])
+def test_expand_tile_model_matches_jax_and_plain(count):
+    seed = _seed(count)
+    key = [int(w) for w in np.frombuffer(seed, dtype="<u4")]
+    values, compressions, depth, lengths = expand_tile_model(key, count, count)
+    want = jints(JR.seed_expand_mont(count, seed))
+    assert values == want
+    words = torch.from_numpy(np.frombuffer(seed, dtype="<u4").view(np.int32).copy())
+    rounds = []
+    got = MK.seed_expand_plain(words, count, rounds)
+    assert compressions == rounds[0]
+    assert tints(got) == values
+    # each round's queue is no longer than the one before, and the tiles
+    # cover the counters
+    assert sum(r[0] for r in lengths) == (count + 1) // 2
+    for r in lengths:
+        assert all(a >= b for a, b in zip(r[1:], r[2:]))
+    if count == 4097:
+        assert depth >= 3, "pick a seed for which some counter reaches round 3"

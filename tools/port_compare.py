@@ -46,12 +46,21 @@ builds its kernels, and prints one JSON line:
   (2, 8, 4096) forward with the pre-scale, and at the four-step's inner
   transforms of a 2^20 MiMC prove, (4096, 8, 4096) and (2048, 8, 2048),
   each with the twiddle post-scale and without; H4 at (8, n) for the 2^20
-  path's layers 2^24, 2^20, 2^18 and 2^15, and at n = 4096;
-* ``mimc_prove``: one steady prove of a 2^20-step MiMC chain after
-  ``preprocess`` and a first prove: its wall seconds, and under
-  torch.profiler its wall and device busy seconds and the device
-  milliseconds and launches of H3 (``ntt_kernel``) and H4
-  (``merkle_kernel``);
+  path's layers 2^24, 2^20, 2^18 and 2^15, and at n = 4096; H5
+  (``seed_expand_kernel``) at 2^22 elements, the 2^20 path's randomizer;
+  the ladder (``pow_kernel``) at the paths' calls: x^(p-2) at (8, 1)
+  (batch_inv's root) and at (8, 128), and the verifier's x^201 and x^741
+  at (8, 128);
+* ``mimc_prove``: ``preprocess_s``, the wall seconds of three calls of
+  ``preprocess`` on one 2^20-step MiMC stark in turn (the first builds
+  the instance's tables); then one steady prove after a first: its wall
+  seconds, and under
+  torch.profiler its wall and device busy seconds, the device
+  milliseconds and launches of every kernel by name (``by_kernel``: H3
+  ``ntt_kernel``, H4 ``merkle_kernel``, PyTorch's own), and each H1
+  launch's shapes with its device microseconds and byte bound, by shape
+  (``h1_by_shape``: the operands as the wrapper got them, each read
+  once, the output written once, at 3.35 TB/s);
 * the card's name and power limit (nvidia-smi).
 
 To compare two commits, unpack the older one into a git-ignored
@@ -65,6 +74,7 @@ import argparse
 import collections
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -209,7 +219,8 @@ def kernel_shapes(dev) -> dict:
         flat = [us for run in runs for us in run]
         return statistics.median(flat) if flat else None
 
-    out = {"ntt_device_us": {}, "merkle_device_us": {}}
+    out = {"ntt_device_us": {}, "merkle_device_us": {}, "seed_expand_device_us": {},
+           "pow_device_us": {}}
     for batch, n, scale in ((2, 4096, "pre"), (4096, 4096, "post"), (4096, 4096, None),
                             (2048, 2048, "post"), (2048, 2048, None)):
         x = codeword((batch, 8, n), n + batch)
@@ -229,6 +240,23 @@ def kernel_shapes(dev) -> dict:
             "launches": per_launch}
         del canon
         torch.cuda.empty_cache()
+    import hashlib
+
+    import numpy as np
+
+    from stark_anatomy_tpu_torch.field import ops as F
+    from stark_anatomy_tpu_torch.field.scalar import P
+
+    seed = torch.from_numpy(np.frombuffer(hashlib.blake2s(b"port compare seed").digest(), dtype="<u4")
+                            .view(np.int32).copy()).to(dev)
+    for count in (1 << 22,):
+        runs = kernel_events(lambda: MK.seed_expand(seed, count), "seed_expand_kernel", 10)
+        out["seed_expand_device_us"][str(count)] = median_per_launch(runs)
+    for shape, e, label in (((8, 1), P - 2, "p-2"), ((8, 128), P - 2, "p-2"), ((8, 128), 201, "201"),
+                            ((8, 128), 741, "741")):
+        x = codeword(shape, shape[-1] + e % 1000)
+        runs = kernel_events(lambda: F.mont_pow(x, e), "pow_kernel", 20)
+        out["pow_device_us"][f"{shape} {label}"] = median_per_launch(runs)
     return out
 
 
@@ -240,13 +268,20 @@ def mimc_prove(dev) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from stark_anatomy_tpu_torch.field import kernels as K
     from stark_anatomy_tpu_torch.field.scalar import Field, FieldElement
     from stark_anatomy_tpu_torch.models import mimc as MM
 
     field = Field.main()
     rng = random.Random(2020)
     mimc, stark = MM.make_stark(1 << 20)
-    tz = stark.preprocess()
+    preprocess_s = []
+    for _ in range(3):
+        tz = None
+        t = time.perf_counter()
+        tz = stark.preprocess()
+        torch.cuda.synchronize()
+        preprocess_s.append(time.perf_counter() - t)
     MM.prove_chain(mimc, stark, FieldElement(rng.randrange(field.p), field), tz)
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -254,24 +289,62 @@ def mimc_prove(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     x = FieldElement(rng.randrange(field.p), field)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        MM.prove_chain(mimc, stark, x, tz)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t
-    busy_us, by_kernel = 0.0, {"ntt_kernel": [0, 0.0], "merkle_kernel": [0, 0.0]}
+    calls = []                                   # (wrapper, a's shape, b's shape, out's shape)
+    saved = {name: getattr(K, name) for name in ("add_mod", "sub_mod")}
+
+    def recording(name, wrapper):
+        @functools.wraps(wrapper)
+        def wrapped(a, b, *args, **kwargs):
+            out = wrapper(a, b, *args, **kwargs)
+            if out.is_cuda and out.numel():          # a launch (a CPU tensor runs the plain version)
+                calls.append((name, tuple(a.shape), tuple(b.shape), tuple(out.shape)))
+            return out
+        return wrapped
+
+    for name, wrapper in saved.items():
+        setattr(K, name, recording(name, wrapper))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            MM.prove_chain(mimc, stark, x, tz)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t
+    finally:
+        for name, wrapper in saved.items():
+            setattr(K, name, wrapper)
+    busy_us, by_kernel = 0.0, {}
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         busy_us += us
-        for tag, acc in by_kernel.items():
-            if tag in e.key:
-                acc[0] += e.count
-                acc[1] += us
-    return {"wall_s": wall, "profiled_wall_s": prof_wall,
+        if us > 0:
+            acc = by_kernel.setdefault(e.key[:100], [0, 0.0])
+            acc[0] += e.count
+            acc[1] += us
+    events = sorted((e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    h1 = {}
+    for name, tag in (("add_mod", "AddMod"), ("sub_mod", "SubMod")):
+        launches = [e.time_range.elapsed_us() for e in events if tag in e.name]
+        made = [c for c in calls if c[0] == name]
+        if len(launches) != len(made):
+            h1[name] = f"{len(made)} calls against {len(launches)} profiled launches: not paired"
+            continue
+        for (_, sa, sb, so), us in zip(made, launches):
+            key = f"{name} {sa} {sb} -> {so}"
+            nbytes = 4 * (math.prod(sa) + math.prod(sb) + math.prod(so))
+            row = h1.setdefault(key, {"launches": 0, "device_us": [], "bound_us": nbytes / 3.35e12 * 1e6})
+            row["launches"] += 1
+            row["device_us"].append(us)
+    for row in h1.values():
+        if isinstance(row, dict):
+            row["device_us"] = statistics.median(row["device_us"])
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
+    return {"preprocess_s": preprocess_s, "wall_s": wall, "profiled_wall_s": prof_wall,
             "device_busy_s": busy_us / 1e6 if busy_us else None,
-            "by_kernel": {tag: {"launches": c, "device_ms": us / 1e3} for tag, (c, us) in by_kernel.items()}}
+            "by_kernel": {tag: {"launches": c, "device_ms": us / 1e3} for tag, (c, us) in top},
+            "h1_by_shape": h1}
 
 
 def median_s(fn, runs: int = 5) -> float:

@@ -39,7 +39,8 @@ import shutil
 import subprocess
 import sys
 
-KERNELS = ("pow_kernel", "rescue_kernel", "binary_kernel", "ntt_kernel", "merkle_kernel")
+KERNELS = ("pow_kernel", "rescue_kernel", "binary_kernel", "ntt_kernel", "merkle_kernel",
+           "seed_expand_kernel")
 NO_DEST = ("ST", "BRA", "EXIT", "BAR", "NOP", "BSSY", "BSYNC", "WARPSYNC", "RET", "CALL",
            "JMP", "YIELD", "MEMBAR", "RED", "DEPBAR", "ERRBAR", "CCTL", "BPT")
 INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -209,6 +210,9 @@ def main() -> int:
             continue
         if kernel == "binary_kernel":
             kernel += "<" + re.search(r"MontMul|AddMod|SubMod", name).group(0) + ">"
+        inv = re.search(r"pow_kernelI.*Lb(\d)E+v", name)
+        if inv:
+            kernel += "<inverse chain>" if inv.group(1) == "1" else "<ladder>"
         template = re.search(r"ntt_kernelILi(\d+)ELb(\d)E", name)
         if template:
             kernel += f"<{template.group(1)}, {'true' if template.group(2) == '1' else 'false'}>"
