@@ -86,7 +86,22 @@ Phases (each prints its wall seconds):
    (cProfile); then the card against the CPU byte for byte: a seeded
    batch of 3 at the tests' small parameters, a seeded slow ``Stark`` proof at
    tests/test_stark.py's parameters, and ``entry()``'s core outputs at
-   B = 2; and ``interpolate_generic`` round trips at n = 16 and 256.
+   B = 2; and ``interpolate_generic`` round trips at n = 16 and 256;
+7. multi-GPU sharding on the one card (in-process shards, a virtual mesh
+   of cuda:0 repeated): H3 (the distributed NTT's column transforms
+   (w, 8, S) and its row transforms' four-step inner shapes), H0 (the
+   cross twiddle (w, 8, S) and a shard's coset scale), H6 (a pair block's
+   top round) and H4 (one launch over the S pair blocks) at the sharded
+   2^20 path's shapes for S = 2, 4, 8 against their plain versions, and
+   the distributed NTT at 2^24 against the one-device NTT; the topology
+   test's proof (FRI domain 512) on S = 2, 4, 8 shards, identical to the
+   one-device card proof and the CPU's; NCCL at world size 1 (the group,
+   the controller, the distributed NTT, a sharded proof); the 2^20 MiMC
+   proof on 8 shards identical to the one-device proof and verified, with
+   its launches (every kernel of the path must launch); the scaling report
+   for S = 1, 2, 4, 8 (seconds, peak memory, device busy share, routes:
+   sharding overhead on one card, not collective scaling); and
+   ``dryrun_multichip(8, devices=[cuda:0] * 8)``.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, a JSON
 line with one record per kernel, and the result line
@@ -196,6 +211,16 @@ BATCH_SPANS = ("hash", "sample", "device_from_ints", "_boundary_tables", "pipeli
                "limb_rows_np", "query", "open_multi", "gather_rows", "serialize")
 LARGE_PHASES = ("trace_gen", "trace_lde", "boundary_quotients", "commit_bq", "air_quotients",
                 "randomizer_poly", "commit_randomizer", "combination", "fri", "openings")
+# multi-GPU sharding (phase 7): in-process shards on the one card (a
+# virtual mesh of cuda:0 repeated), at the topology test's parameters
+# (tests/test_topology_invariance.py:59, FRI domain 512) and on the 2^20
+# chain (omicron domain 2^22, FRI domain 2^24)
+SHARD_COUNTS = (2, 4, 8)
+SCALING_SHARDS = (1, 2, 4, 8)
+SCALING_REPS = 2
+SHARD_SPOT_ROWS = 256                       # rows of an H3/H0 launch held against the plain version
+SHARDED_KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "ntt", "merkle", "seed_expand",
+                   "fri_fold")              # every kernel the sharded 2^20 prove launches
 
 
 def det_urandom(seed: bytes):
@@ -998,6 +1023,261 @@ def batch_path(dev, smi, records, worst_err, compare, scheme) -> None:
         print(f"  interpolate_generic n = {n}: round trip on the card, coefficients equal the CPU's")
 
 
+def sharded_path(dev, smi, compare, steps: int = MIMC_STEPS) -> None:
+    """Phase 7: the multi-GPU layer on the one card.  H3, H0, H4 and H6 at
+    the shapes the sharded 2^20 path gives them against their plain
+    versions, and the distributed NTT at 2^24 against the one-device one;
+    the topology test's proof on in-process shards S = 2, 4, 8 against
+    the one-device card proof and the CPU's; NCCL at world size 1; the
+    sharded 2^20 MiMC proof at S = 8 against the one-device proof, and
+    the scaling report (sharding overhead on one card) for S = 1-8; the
+    multi-GPU dry run on a virtual mesh of 8."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from stark_anatomy_tpu_torch.commit import kernels as MK
+    from stark_anatomy_tpu_torch.entry import dryrun_multichip
+    from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field.scalar import Field, FieldElement, P
+    from stark_anatomy_tpu_torch.models import mimc as MM
+    from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime, make_air_evaluator
+    from stark_anatomy_tpu_torch.ops import ntt as NTT
+    from stark_anatomy_tpu_torch.ops.domain import DOMAINS
+    from stark_anatomy_tpu_torch.parallel.mesh import Mesh, Sharded, make_mesh
+    from stark_anatomy_tpu_torch.parallel.multihost import (
+        collective_bytes_model, init_distributed, is_controller, make_mimc_scaling_prover,
+        scaling_report, shutdown,
+    )
+    from stark_anatomy_tpu_torch.parallel.ntt_dist import cross_twiddles, make_distributed_ntt
+    from stark_anatomy_tpu_torch.parallel.sharded_stark import ShardedFastStark
+    from stark_anatomy_tpu_torch.protocols.fast_stark import FastStark
+
+    M = 1 << (3 * (steps + 1 + 4 * 64)).bit_length()      # the chain's omicron domain at 64 checks
+    N = 4 * M                                             # and its FRI domain
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def spot(name, label, got, want_fn, rows):
+        compare(name, f"{label}, {len(rows)} rows against plain", got[rows], want_fn(rows))
+
+    # H3's column transforms (w, 8, S) and H0's cross twiddle at every
+    # distributed transform of the path (n = M and N, S = 2, 4, 8), and
+    # H3 at the row transforms' four-step inner shapes (n1 rows of n2)
+    inner = set()
+    for S in SHARD_COUNTS:
+        for n in (M, N):
+            B = n // S
+            w = B // S
+            x = random_codeword((w, 8, S), 7000 + S + n.bit_length(), dev)
+            rows = sorted(random.Random(7100 + S).sample(range(w), min(w, SHARD_SPOT_ROWS)))
+            dom = DOMAINS.get(S, dev)
+            for inverse in (False, True):
+                args = (dom["inv_powers" if inverse else "fwd_powers"], dom["n_inv"] if inverse else None)
+                got = K.ntt(x, *args)
+                spot("ntt", f"column transforms ({w}, 8, {S}) {'inverse' if inverse else 'forward'} "
+                     f"({K.ntt_plan(w, S.bit_length() - 1, sms)[0]} path)", got,
+                     lambda r: K.ntt_plain(x[r], *args), rows)
+            tw = cross_twiddles(n, S, S - 1, False, dev)
+            got = K.mont_mul(x, tw)
+            spot("mont_mul", f"cross twiddle ({w}, 8, {S})", got, lambda r: K.mont_mul_plain(x[r], tw[r]), rows)
+            if S == SHARD_COUNTS[-1]:
+                col = lambda: K.ntt(x, dom["fwd_powers"])
+                twiddle = lambda: K.mont_mul(x, tw)
+                col_ms, tw_ms = time_launches(col, 20), time_launches(twiddle, 20)
+                col_us = profile_kernel("ntt", col, 10)
+                tw_us = profile_kernel("mont_mul", twiddle, 10)
+                col_bound = bound_ms(1, 2 * w * S * 32 + S * 16, ntt_ops(w, S, 0, False))
+                tw_bound = bound_ms(w * S, 3 * w * S * 32, MUL_OPS)
+                print(f"  ntt column transforms ({w}, 8, {S}) (n = 2^{n.bit_length() - 1}): {col_ms:.6f} "
+                      f"ms/launch (CUDA events), device {fmt_us(col_us)}/launch, bound {col_bound[0]:.6f} ms "
+                      f"({col_bound[1]}); mont_mul cross twiddle ({w}, 8, {S}): {tw_ms:.6f} ms/launch, device "
+                      f"{fmt_us(tw_us)}/launch, bound {tw_bound[0]:.6f} ms ({tw_bound[1]}) on {smi}")
+            del x, got, tw
+            if B > NTT.NTT_MAX:
+                n1 = 1 << ((B.bit_length() - 1) // 2)
+                inner |= {(n1, B // n1, True), (B // n1, n1, False)}
+    for batch, n, scaled in sorted(inner):
+        x, post = (random_codeword((batch, 8, n), 7200 + batch + n + k, dev) for k in range(2))
+        rows = sorted(random.Random(7300 + n).sample(range(batch), NTT_SPOT_ROWS))
+        args = (DOMAINS.get(n, dev)["fwd_powers"], None, None, post if scaled else None)
+        got = K.ntt(x, *args)
+        spot("ntt", f"four-step inner ({batch}, 8, {n}){' post-scaled' if scaled else ''} "
+             f"({K.ntt_plan(batch, n.bit_length() - 1, sms)[0]} path)", got,
+             lambda r: K.ntt_plain(x[r], args[0], None, None, post[r] if scaled else None), rows)
+        del x, post, got
+    # H0's coset scale and H6's top round on one shard, H4 over the S pair
+    # blocks (one launch for the S subtrees); the largest S gives timings
+    for S in SHARD_COUNTS:
+        per = N // S
+        a, b = random_codeword((8, per), 7400 + S, dev), random_codeword((8, per), 7410 + S, dev)
+        compare("mont_mul", f"coset scale (8, 2^{per.bit_length() - 1})", K.mont_mul(a, b), K.mont_mul_plain(a, b))
+        u = random_codeword((8, per // 2), 7420 + S, dev)
+        alpha = random.Random(7430 + S).randrange(P)
+        for label, g, w in zip(("folded", "canonical", "u^2"), K.fri_fold(a, u, alpha), K.fri_fold_plain(a, u, alpha)):
+            compare("fri_fold", f"pair block (8, 2^{per.bit_length() - 1}) {label}", g, w)
+        canon = random_codeword((S, 8, per), 7440 + S, dev)
+        compare("merkle", f"forest of {S} subtrees ({S}, 8, 2^{per.bit_length() - 1})",
+                MK.merkle_paired(canon), MK.merkle_paired_plain(canon))
+        tree_ms = time_launches(lambda: MK.merkle_paired(canon), 5)
+        tree_us = profile_kernel("merkle", lambda: MK.merkle_paired(canon), 5)
+        tree_bound = merkle_bound(per, S)
+        line = (f"  merkle ({S}, 8, 2^{per.bit_length() - 1}): {tree_ms:.6f} ms/commit (CUDA events), device "
+                f"{fmt_us(tree_us)}/commit (1 launch), bound {tree_bound[0]:.6f} ms ({tree_bound[1]})")
+        if S == SHARD_COUNTS[-1]:
+            scale_ms = time_launches(lambda: K.mont_mul(a, b), 20)
+            fold_ms = time_launches(lambda: K.fri_fold(a, u, alpha), 20)
+            scale_us = profile_kernel("mont_mul", lambda: K.mont_mul(a, b), 10)
+            fold_us = profile_kernel("fri_fold", lambda: K.fri_fold(a, u, alpha), 10)
+            scale_bound = bound_ms(per, 3 * per * 32, MUL_OPS)
+            h = per // 2
+            fold_bound = bound_ms(1, FOLD_BYTES * h, h * (4 * MUL_OPS + 3 * ADD_OPS) + h // 2 * SQR_OPS)
+            line += (f"; mont_mul coset scale (8, 2^{per.bit_length() - 1}): {scale_ms:.6f} ms/launch, device "
+                     f"{fmt_us(scale_us)}/launch, bound {scale_bound[0]:.6f} ms ({scale_bound[1]}); fri_fold "
+                     f"(8, 2^{per.bit_length() - 1}): {fold_ms:.6f} ms/launch, device {fmt_us(fold_us)}/launch, "
+                     f"bound {fold_bound[0]:.6f} ms ({fold_bound[1]})")
+        print(line + f" on {smi}")
+        del a, b, u, canon
+    # the distributed NTT at N (2^24) on S = 8 shards against the one-device
+    # transform, both directions; each one's time on this card
+    mesh8 = Mesh([[dev] * 8])
+    x = random_codeword((8, N), 7500, dev)
+    fwd, inv = make_distributed_ntt(N, mesh8), make_distributed_ntt(N, mesh8, inverse=True)
+    xs = Sharded.place(mesh8, x)
+    want = NTT.ntt(x)
+    y = fwd(xs)
+    assert torch.equal(y.gather(), want), f"the distributed NTT at {N} differs from the one-device NTT"
+    assert torch.equal(inv(y).gather(), x), f"the distributed inverse at {N} did not undo the forward"
+    dist_ms = time_launches(lambda: fwd(xs), 3, warm=1)
+    one_ms = time_launches(lambda: NTT.ntt(x), 3, warm=1)
+    print(f"  distributed NTT n=2^{N.bit_length() - 1} over 8 in-process shards: equals the one-device NTT, inverse round "
+          f"trip exact; {dist_ms:.3f} ms/call against one device's {one_ms:.3f} ms (CUDA events) on {smi}")
+    del x, xs, want, y, fwd, inv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the topology test's proof: in-process shards on the card, one
+    # device on the card, and the CPU
+    field = Field.main()
+    rp = RescuePrime()
+    params = (field, 4, 2, 4, rp.m, rp.N + 1)
+    inp = field.sample(b"topology")
+    trace, boundary = rp.trace(inp), rp.boundary_constraints(rp.hash(inp))
+
+    def topology_proof(stark):
+        air = rp.transition_constraints(stark.omicron)
+        tz = stark.preprocess()
+        return stark.prove(trace, air, boundary, tz, air_evaluator=make_air_evaluator(stark),
+                           urandom=det_urandom(b"seed-A")), tz, air
+
+    single = FastStark(*params, transition_constraints_degree=3, device=dev)
+    want, tz1, air = topology_proof(single)
+    cpu_proof = topology_proof(FastStark(*params, transition_constraints_degree=3, device="cpu"))[0]
+    assert want == cpu_proof, "the card and the CPU proved different topology proofs"
+    for S in SHARD_COUNTS:
+        stark = ShardedFastStark(*params, transition_constraints_degree=3, mesh=Mesh([[dev] * S]))
+        t = time.perf_counter()
+        proof, tz, _ = topology_proof(stark)
+        torch.cuda.synchronize()
+        assert proof == want and tz.root == tz1.root, f"the sharded proof at S = {S} differs from one device's"
+        assert single.verify(proof, air, boundary, tz1.root), f"the sharded proof at S = {S} did not verify"
+        print(f"  topology proof on {S} in-process shards of the card: identical to the one-device card "
+              f"proof and the CPU's ({len(proof)} bytes), verified; preprocess + prove "
+              f"{time.perf_counter() - t:.3f} s, routes {dict(stark.routes)}")
+
+    # NCCL at world size 1: the group, the controller, the distributed NTT
+    # (sp = 1) and a sharded proof whose every exchange and gather is NCCL's
+    rdv = tempfile.mkdtemp(prefix="stark_nccl_")
+    try:
+        assert init_distributed(f"file://{rdv}/rendezvous", 1, 0), "init_distributed did not start NCCL"
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1 and is_controller()
+        mesh1 = make_mesh()
+        assert mesh1.backend == "dist" and mesh1.device == dev, mesh1
+        x = random_codeword((2, 8, 4096), 7600, dev)
+        y = make_distributed_ntt(4096, mesh1)(Sharded.place(mesh1, x))
+        assert torch.equal(y.gather(), NTT.ntt(x)), "the NCCL distributed NTT differs from the one-device NTT"
+        assert torch.equal(make_distributed_ntt(4096, mesh1, inverse=True)(y).gather(), x)
+        proof, tz, _ = topology_proof(ShardedFastStark(*params, transition_constraints_degree=3, mesh=mesh1))
+        assert proof == want and tz.root == tz1.root, "the NCCL sharded proof differs from one device's"
+        print(f"  NCCL at world size 1 ({dist.get_backend()}, {mesh1}): init_distributed, is_controller, the "
+              f"distributed NTT (sp = 1) on the card and a sharded topology proof identical to one device's")
+    finally:
+        shutdown()
+        shutil.rmtree(rdv, ignore_errors=True)
+    del single, tz1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the 2^20 chain at the production parameters on 8 in-process shards,
+    # against the one-device seeded proof
+    rng = random.Random(7700)
+    x = FieldElement(rng.randrange(P), field)
+    mimc, single = MM.make_stark(steps, device=dev)
+    tz1 = single.preprocess()
+    out1, proof1, _ = MM.prove_chain(mimc, single, x, tz1, urandom=det_urandom(b"chip smoke sharded"))
+    stark = ShardedFastStark(field, 4, 64, 128, 1, steps + 1, transition_constraints_degree=3, mesh=mesh8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    tz8 = stark.preprocess()
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t
+    t = time.perf_counter()
+    out8, proof8, _ = MM.prove_chain(mimc, stark, x, tz8, urandom=det_urandom(b"chip smoke sharded"))
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    print(f"  launches in the sharded 2^20 path (preprocess, prove; S = 8): {sum(launches.values())} {launches}")
+    for name in SHARDED_KERNELS:
+        assert launches[name] > 0, f"{name} was not launched on the sharded path"
+    assert tz8.root == tz1.root, "the sharded zerofier root differs from one device's"
+    assert proof8 == proof1 and out8 == out1, "the sharded 2^20 proof differs from the one-device proof"
+    assert MM.verify_chain(mimc, single, x, out8, proof8, tz1.root), "the sharded 2^20 proof did not verify"
+    print(f"MiMC {steps} steps on 8 in-process shards of the card: proof identical to the one-device "
+          f"proof ({len(proof8)} bytes) and verified; preprocess {pre_s:.3f} s, prove {prove_s:.3f} s, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, routes {dict(stark.routes)} on {smi}")
+    model = collective_bytes_model(stark, 8)
+    print("  collective_bytes_model at S = 8 (bytes a proof would move between cards): "
+          + ", ".join(f"{k} {v:.0f}" for k, v in model.items()))
+    del stark, tz8, single, tz1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the scaling report: one card, so the shards share it and this is the
+    # sharding's overhead, not a speedup across cards
+    prove_fn = make_mimc_scaling_prover(steps, 64, 128, devices=[dev] * 8)
+    rows = []
+    for s in SCALING_SHARDS:
+        torch.cuda.reset_peak_memory_stats()
+        rep = scaling_report(prove_fn, [s], reps=SCALING_REPS)[0]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stark = prove_fn.get(s)[0]
+        routes = getattr(stark, "routes", {})
+        routes.clear()
+        wall, busy, _ = profile_all(lambda: prove_fn(s))
+        routes = dict(routes)                 # one prove's
+        rows.append((s, rep["seconds"], peak, wall, busy, routes, collective_bytes_model(stark, s)["TOTAL"]))
+        del stark
+        prove_fn.drop(s)
+        gc.collect()
+        torch.cuda.empty_cache()
+    base = rows[0][1]
+    for s, sec, peak, wall, busy, routes, model_bytes in rows:
+        share = "not measured" if busy is None else f"{100 * busy / wall:.2f}%"
+        print(f"scaling S={s}: {sec:.4f} s a prove (mean of {SCALING_REPS} after a warm one), "
+              f"{sec / base:.3f}x one device's, peak device memory {peak:.3f} GiB, device busy {share} of one "
+              f"profiled prove ({wall:.4f} s), routes {routes}, collective bytes (model) {model_bytes:.0f}")
+    print(f"scaling over {SCALING_SHARDS} in-process shards of ONE card: sharding overhead, not collective "
+          f"scaling (that needs several cards) on {smi}")
+
+    result = dryrun_multichip(8, devices=[dev] * 8)
+    print(f"dryrun_multichip(8, devices=[{dev}] * 8): {result}; torch.cuda.device_count() = "
+          f"{torch.cuda.device_count()}")
+
+
 def main() -> int:
     import torch
 
@@ -1484,6 +1764,12 @@ def main() -> int:
     batch_path(dev, smi, records, worst_err, compare, scheme)
     assert worst_mismatch == 0, "a kernel disagrees with its plain version"
     phase("6 batch signing", t6)
+
+    # -- phase 7: multi-GPU sharding on the one card -------------------------
+    t7 = time.perf_counter()
+    sharded_path(dev, smi, compare)
+    assert worst_mismatch == 0, "a kernel disagrees with its plain version"
+    phase("7 sharded", t7)
 
     print(f"total: {time.perf_counter() - t0:.3f} s")
     print(smi)

@@ -2,7 +2,9 @@
 
 The port of stark_anatomy_tpu/commit/device_merkle.py: ``DeviceMerkleTree``,
 ``DeviceRows``, ``device_commit_paired``, ``device_commit_paired_many``,
-``use_device_commit``, ``DEVICE_COMMIT_MIN`` and ``gather_rows``.  The
+``use_device_commit``, ``DEVICE_COMMIT_MIN`` and ``gather_rows``; and the
+forest of a sharded codeword (``commit_forest``, ``ForestTree``,
+``ForestRows``), the port's own, which commits without gathering.  The
 tree is H4 (commit/kernels.py:merkle_paired) over the canonical limbs
 that one H0 launch makes (``F.from_mont``); only the root and the
 queried digests and values are copied to the host, each opening by one
@@ -19,18 +21,20 @@ from __future__ import annotations
 
 import os
 import warnings
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..field import ops as F
-from ..utils.convert import gather_rows, int_from_row
+from ..utils.convert import canonical_np, gather_rows, int_from_row
 from .kernels import merkle_paired
+from .merkle import MerkleTree
 
 __all__ = [
-    "DEVICE_COMMIT_MIN", "DeviceMerkleTree", "DeviceRows", "device_commit_paired",
-    "device_commit_paired_many", "gather_rows", "use_device_commit",
+    "DEVICE_COMMIT_MIN", "DeviceMerkleTree", "DeviceRows", "ForestRows", "ForestTree",
+    "commit_forest", "device_commit_paired", "device_commit_paired_many", "gather_rows",
+    "use_device_commit",
 ]
 
 # below this many codeword elements the host path is taken, as in the
@@ -169,4 +173,173 @@ def device_commit_paired_many(codewords_mont: torch.Tensor):
     return [
         (DeviceRows(canon[r]), DeviceMerkleTree(flat[r], root=roots[r]))
         for r in range(codewords_mont.shape[0])
+    ]
+
+
+# ---------------------------------------------------------------------------
+# the forest of a sharded codeword
+# ---------------------------------------------------------------------------
+#
+# A codeword of n elements in S shards is committed as S subtrees and a top
+# tree.  Subtree k covers the paired leaves [k h, (k + 1) h), h = n / (2S):
+# its input is the pair block Q_k = (c[k h : (k + 1) h], c[n/2 + k h : n/2 +
+# (k + 1) h]), whose own paired tree (leaf t hashes Q_k[t] and Q_k[t + h])
+# is exactly that part of the monolithic tree.  So no tensor longer than
+# 2h = n/S is hashed, and the top tree over the S roots gives the
+# monolithic root; an opening is a subtree path and a top path.
+
+
+def _no_merge(local: dict) -> dict:
+    return local
+
+
+class ForestTree:
+    """The paired-leaf tree of a codeword held as per-block subtrees (host
+    MerkleTree or DeviceMerkleTree, the ones this process holds) and a host
+    top tree over all S roots.  Same root, paths and multiproofs as the
+    monolithic tree.  ``merge`` joins the digests that each process's
+    subtrees serve (identity in one process)."""
+
+    __slots__ = ("subtrees", "top", "sub_depth", "depth", "merge")
+
+    def __init__(self, subtrees: Dict[int, object], roots: List[bytes], leaves: int, merge=None):
+        S = len(roots)
+        assert S & (S - 1) == 0 and leaves % S == 0
+        self.subtrees = subtrees
+        self.top = MerkleTree(_digests=np.frombuffer(b"".join(roots), dtype=np.uint8).reshape(S, -1))
+        self.sub_depth = (leaves // S).bit_length() - 1
+        self.depth = leaves.bit_length() - 1
+        self.merge = merge or _no_merge
+
+    @property
+    def root(self) -> bytes:
+        return self.top.root
+
+    def __len__(self) -> int:
+        return 1 << self.depth
+
+    def multiproof(self, indices) -> List[bytes]:
+        """The bytes of commit/merkle.py:open_multi over the monolithic tree:
+        the siblings in the same order, the subtrees' from one gather each."""
+        known = sorted(set(indices))
+        order = []
+        for level in range(self.depth):
+            known_set = set(known)
+            order.extend((level, i ^ 1) for i in known if i ^ 1 not in known_set)
+            known = sorted({i >> 1 for i in known})
+        wanted: Dict[int, list] = {}
+        for level, node in order:
+            if level < self.sub_depth:
+                shift = self.sub_depth - level
+                wanted.setdefault(node >> shift, []).append((level, node))
+        local = {}
+        for k, reqs in wanted.items():
+            if k in self.subtrees:
+                shift = self.sub_depth
+                digests = _tree_digests(self.subtrees[k],
+                                        [(lv, nd - ((nd >> (shift - lv)) << (shift - lv))) for lv, nd in reqs])
+                local.update(zip(reqs, digests))
+        found = self.merge(local)
+        return [found[(lv, nd)] if lv < self.sub_depth
+                else self.top.levels[lv - self.sub_depth][nd].tobytes() for lv, nd in order]
+
+    def open(self, index: int) -> List[bytes]:
+        """Authentication path (sibling digests, leaf level first)."""
+        assert 0 <= index < len(self), "cannot open invalid index"
+        return self.multiproof([index])
+
+
+def _tree_digests(tree, reqs) -> List[bytes]:
+    """Digests at (level, node) of a host or device tree."""
+    if isinstance(tree, DeviceMerkleTree):
+        return tree._gather_flat([tree.offsets[lv] + nd for lv, nd in reqs])
+    return [tree.levels[lv][nd].tobytes() for lv, nd in reqs]
+
+
+class ForestRows:
+    """Opening values of a codeword held as the forest's pair blocks: block
+    k holds the canonical rows of global elements [k h, (k + 1) h) and then
+    [n/2 + k h, n/2 + (k + 1) h), h = n / (2S), as DeviceRows or as
+    element-major numpy rows (the blocks this process holds)."""
+
+    __slots__ = ("blocks", "n", "h", "merge")
+
+    def __init__(self, blocks: Dict[int, object], n: int, num_blocks: int, merge=None):
+        self.blocks = blocks
+        self.n = n
+        self.h = n // (2 * num_blocks)
+        self.merge = merge or _no_merge
+
+    @property
+    def shape(self):
+        return (self.n, 8)
+
+    def __len__(self) -> int:
+        return self.n
+
+    def gather(self, indices) -> List[int]:
+        """Canonical ints at global ``indices`` (one gather a block)."""
+        half = self.n // 2
+        by_block: Dict[int, list] = {}
+        for i in indices:
+            leaf = i % half
+            k = leaf // self.h
+            by_block.setdefault(k, []).append((i, leaf % self.h + (self.h if i >= half else 0)))
+        local = {}
+        for k, pairs in by_block.items():
+            if k in self.blocks:
+                rows = self.blocks[k]
+                locs = [p for _, p in pairs]
+                vals = rows.gather(locs) if hasattr(rows, "gather") else [int_from_row(rows[p]) for p in locs]
+                local.update(zip((i for i, _ in pairs), vals))
+        found = self.merge(local)
+        return [found[i] for i in indices]
+
+    def __getitem__(self, i: int) -> int:
+        return self.gather([i])[0]
+
+
+def commit_forest(blocks: Dict[int, torch.Tensor], n: int, num_blocks: int, on_device: bool,
+                  merge=None):
+    """Commit the pair blocks Q_k (..., 8, n/S), Montgomery form, of R =
+    prod(...) codewords of n elements: on the
+    device, the blocks on one device are stacked and committed by one H0
+    launch to canonical form and one H4 launch for all their trees; on the
+    host, each block's canonical rows are copied and hashed by N1.  The S
+    roots of each codeword meet in its top tree.  Returns a list of R
+    (ForestRows, ForestTree)."""
+    merge = merge or _no_merge
+    lead = tuple(next(iter(blocks.values())).shape[:-2])
+    R = int(np.prod(lead)) if lead else 1
+    rows: Dict[tuple, object] = {}
+    trees: Dict[tuple, object] = {}
+    roots: Dict[tuple, bytes] = {}
+    if on_device:
+        by_dev: Dict[torch.device, list] = {}
+        for k, q in blocks.items():
+            by_dev.setdefault(q.device, []).append(k)
+        for ks in by_dev.values():
+            stacked = torch.stack([blocks[k] for k in ks])
+            canon = F.from_mont(stacked).reshape((len(ks), R) + stacked.shape[-2:])
+            flat = merkle_paired(canon)
+            tops = _digest_bytes(flat[..., -2].reshape(-1, flat.shape[-2]).T)
+            for a, k in enumerate(ks):
+                for r in range(R):
+                    root = tops[a * R + r]
+                    rows[k, r] = DeviceRows(canon[a, r])
+                    trees[k, r] = DeviceMerkleTree(flat[a, r], root=root)
+                    roots[k, r] = root
+    else:
+        for k, q in blocks.items():
+            rows_k = canonical_np(q).reshape((R, q.shape[-1], 8))
+            for r in range(R):
+                tree = MerkleTree.from_limbs_paired(rows_k[r])
+                rows[k, r], trees[k, r], roots[k, r] = rows_k[r], tree, tree.root
+    roots = merge(roots)
+    leaves = n // 2
+    return [
+        (ForestRows({k: rows[k, r] for k in blocks}, n, num_blocks, merge),
+         ForestTree({k: trees[k, r] for k in blocks}, [roots[k, r] for k in range(num_blocks)],
+                    leaves, merge))
+        for r in range(R)
     ]

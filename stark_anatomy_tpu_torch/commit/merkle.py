@@ -1,8 +1,9 @@
 """Cached binary Merkle trees over blake2s-256, hashed by N1.
 
 The port of stark_anatomy_tpu/commit/merkle.py: ``MerkleTree`` with
-``from_limbs`` and ``from_limbs_paired``, ``open_multi``, ``verify_multi``
-and ``paired_tree_from_ints``.  Leaves and levels are hashed in C++ by
+``from_limbs`` and ``from_limbs_paired``, the per-shard ``MerkleForest``
+and ``ShardedRows``, the stateless ``Merkle``, ``open_multi``,
+``verify_multi`` and ``paired_tree_from_ints``.  Leaves and levels are hashed in C++ by
 commit/native.py (N1), as the JAX package hashes them through
 native/blake2b_batch.py; the hashlib versions there are the plain ones.
 A tree built on the card is a commit/device_merkle.py:DeviceMerkleTree,
@@ -19,7 +20,7 @@ from typing import List, Sequence
 import numpy as np
 
 from . import native as NB
-from .hashing import elt_bytes, hash_pair
+from .hashing import elt_bytes, hash_leaf, hash_pair
 
 
 class MerkleTree:
@@ -85,6 +86,113 @@ class MerkleTree:
                 acc = hash_pair(acc, sibling)
             index >>= 1
         return acc == root
+
+
+class MerkleForest(MerkleTree):
+    """A Merkle tree built as a forest of per-shard subtrees plus a top tree.
+
+    The commitment is bit-identical to the monolithic :class:`MerkleTree`
+    over the concatenated leaves: a binary tree over n leaves split into S
+    contiguous blocks is S subtrees of depth log2(n/S) joined by a top
+    tree of depth log2(S).  Each block is hashed and reduced alone; only
+    the S subtree roots meet.  The levels are stitched, so openings are
+    the tree's own.
+    """
+
+    def __init__(self, shard_leaf_digests: List[np.ndarray]):
+        S = len(shard_leaf_digests)
+        assert S > 0 and S & (S - 1) == 0, "shard count must be a power of two"
+        per = shard_leaf_digests[0].shape[0]
+        assert all(d.shape[0] == per for d in shard_leaf_digests), (
+            "all shards must hold the same number of leaves"
+        )
+        sub_levels: List[List[np.ndarray]] = []
+        for d in shard_leaf_digests:
+            levels = [d]
+            while levels[-1].shape[0] > 1:
+                levels.append(NB.merkle_level(levels[-1]))
+            sub_levels.append(levels)
+        # full-tree level k is the concatenation of the shards' levels k
+        self.levels = [
+            np.concatenate([sl[k] for sl in sub_levels]) for k in range(len(sub_levels[0]))
+        ]
+        # the top tree over the S subtree roots
+        while self.levels[-1].shape[0] > 1:
+            self.levels.append(NB.merkle_level(self.levels[-1]))
+
+    @classmethod
+    def from_limbs_paired_sharded(cls, canonical_limbs: np.ndarray, num_shards: int) -> "MerkleForest":
+        """Paired-leaf forest over a canonical (n, NLIMBS) codeword: pair row
+        i with i + n/2, split the n/2 leaves into ``num_shards`` contiguous
+        blocks, hash each block alone."""
+        n = canonical_limbs.shape[0]
+        assert n > 1 and n & (n - 1) == 0
+        half = n // 2
+        assert half % num_shards == 0
+        per = half // num_shards
+        blocks = []
+        for s in range(num_shards):
+            lo = canonical_limbs[s * per : (s + 1) * per]
+            hi = canonical_limbs[half + s * per : half + (s + 1) * per]
+            blocks.append(NB.leaves_from_limb_pairs(np.concatenate([lo, hi], axis=0)))
+        return cls(blocks)
+
+
+class ShardedRows:
+    """Element-major canonical rows of a codeword held as per-shard host
+    blocks, never concatenated into one array.
+
+    Reads like a monolithic canonical array (``rows[i]``, ``rows.shape``,
+    iteration), mapping a global row to (block, local row).  The blocks are
+    contiguous equal slices in global order (a sharded codeword's shards).
+    """
+
+    __slots__ = ("blocks", "per", "shape")
+
+    def __init__(self, blocks: List[np.ndarray]):
+        self.blocks = blocks
+        self.per = blocks[0].shape[0]
+        assert all(b.shape == blocks[0].shape for b in blocks)
+        self.shape = (self.per * len(blocks),) + blocks[0].shape[1:]
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        return self.blocks[i // self.per][i % self.per]
+
+    def __iter__(self):
+        for b in self.blocks:
+            yield from b
+
+    def paired_forest(self) -> MerkleForest:
+        """The paired-leaf commitment hashed per shard pair: shard s with
+        shard s + S/2 (the global pairing i <-> i + n/2 falls on exactly
+        that pair), so every leaf and subtree hash reads two shards' blocks
+        and only subtree roots meet.  Bit-identical to
+        MerkleTree.from_limbs_paired over the concatenated rows."""
+        S = len(self.blocks)
+        assert S >= 2 and S & (S - 1) == 0
+        return MerkleForest([
+            NB.leaves_from_limb_pairs(np.concatenate([self.blocks[s], self.blocks[s + S // 2]]))
+            for s in range(S // 2)
+        ])
+
+
+class Merkle:
+    """The reference's stateless API (reference: merkle.py:3-44)."""
+
+    @staticmethod
+    def commit(data_array: Sequence) -> bytes:
+        return MerkleTree([bytes(obj) for obj in data_array]).root
+
+    @staticmethod
+    def open(index: int, data_array: Sequence) -> List[bytes]:
+        return MerkleTree([bytes(obj) for obj in data_array]).open(index)
+
+    @staticmethod
+    def verify(root: bytes, index: int, path: List[bytes], data_element) -> bool:
+        return MerkleTree.verify_path(root, index, path, hash_leaf(bytes(data_element)))
 
 
 def paired_tree_from_ints(codeword: Sequence[int]) -> MerkleTree:

@@ -1,9 +1,11 @@
 """Frozen configuration objects and device selection for the port.
 
-``StarkConfig`` is a copy of the JAX package's (stark_anatomy_tpu/config.py);
-the mesh configuration waits for the multi-GPU slice.  ``resolve_device``
-is the one place that turns a ``device=`` argument into a torch device:
-the port runs on the card unless the caller asks for the CPU.
+``StarkConfig`` and ``MeshConfig`` are the JAX package's
+(stark_anatomy_tpu/config.py): the STARK parameters, and the (dp, sp)
+layout that ``MeshConfig.build`` turns into a parallel/mesh.py:Mesh over
+the real devices (raising with too few).  ``resolve_device`` is the one
+place that turns a ``device=`` argument into a torch device: the port
+runs on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -51,6 +53,30 @@ class StarkConfig:
     @property
     def fri_domain_length(self) -> int:
         return self.omicron_domain_length * self.expansion_factor
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Parallelism layout: dp = independent proofs, sp = codeword axis."""
+
+    dp: int = 1
+    sp: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.dp * self.sp
+
+    def build(self, devices=None):
+        """A Mesh with these axes over the real devices (the CUDA cards, or
+        the ranks under torch.distributed), or over ``devices`` when given
+        (a virtual mesh); raises if there are fewer than ``num_devices``."""
+        from .parallel.mesh import Mesh, make_mesh
+
+        base = make_mesh(self.num_devices, devices=devices)
+        if (base.shape["dp"], base.shape["sp"]) == (self.dp, self.sp):
+            return base
+        flat = [d for row in base.devices for d in row]
+        return Mesh([flat[d * self.sp:(d + 1) * self.sp] for d in range(self.dp)], backend=base.backend)
 
 
 RPSSS_CONFIG = StarkConfig()  # the production signature parameters

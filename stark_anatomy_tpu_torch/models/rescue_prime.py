@@ -25,6 +25,7 @@ from ..field import kernels as K
 from ..field import ops as F
 from ..field.limbs import NLIMBS
 from ..field.scalar import Field, FieldElement, P
+from ..parallel.mesh import Sharded, shard_parts
 from ..poly.multivariate import MPolynomial
 from ..poly.univariate import Polynomial
 from .rescue_constants import ALPHA, ALPHA_INV, MDS, MDS_INV, ROUND_CONSTANTS
@@ -280,7 +281,7 @@ def rescue_air_tables(stark):
             coeff_ints.extend(cs)
     coeffs = device_from_ints(coeff_ints, device)            # (L, 2m*N_ROUNDS)
     coeffs = coeffs.reshape(NLIMBS, 2 * rp.m, rp.N).movedim(1, 0)  # (2m, L, N_ROUNDS)
-    both = evaluate_domain_horner(coeffs, x_lde)             # (2m, L, N_fri)
+    both = stark._pointwise(evaluate_domain_horner, coeffs, x_lde)   # (2m, L, N_fri)
     out = (both[: rp.m], both[rp.m :], _mont_matrix(MDS, device), _mont_matrix(MDS_INV, device))
     stark._rescue_tables = out
     return out
@@ -291,9 +292,12 @@ def make_air_evaluator(stark):
     constant codewords C1_i(x), C2_i(x) are cached, so each proof pays only
     the ~20-multiply kernel above."""
     c1_lde, c2_lde, mds, mds_inv = rescue_air_tables(stark)
+    x_lde = stark._interp_tables()["x_lde"]
 
     def evaluator(x_lde_arg, current, next_):
-        return _rescue_air_kernel(current, next_, c1_lde, c2_lde, mds, mds_inv)
+        # a sharded prover calls this per shard: take the tables' shards
+        c1, c2 = shard_parts(x_lde_arg, x_lde, c1_lde, c2_lde)
+        return _rescue_air_kernel(current, next_, c1, c2, mds, mds_inv)
 
     return evaluator
 
@@ -303,6 +307,7 @@ def make_index_air_evaluator(stark):
     FRI-domain positions, so the cached round-constant codewords serve the
     constants by a gather at the query indices."""
     c1_lde, c2_lde, mds, mds_inv = rescue_air_tables(stark)
+    c1_lde, c2_lde = (t.gather() if isinstance(t, Sharded) else t for t in (c1_lde, c2_lde))
 
     def evaluator(idx, current, next_):
         c1_pts = c1_lde.index_select(-1, idx)

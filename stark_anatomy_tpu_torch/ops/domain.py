@@ -12,6 +12,7 @@ from __future__ import annotations
 import functools
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from ..field import ops as F
@@ -79,3 +80,18 @@ def coset_table(offset: int, n: int, device, inverse: bool = False) -> torch.Ten
     """Table offset^{+-i} (NLIMBS, n), Montgomery form."""
     base = pow(offset, P - 2, P) if inverse else offset
     return power_table(base, n, device)
+
+
+def coset_power_tables(offset: int, n: int, device):
+    """(offset^i, offset^-i) tables (NLIMBS, n), Montgomery form."""
+    return coset_table(offset, n, device, False), coset_table(offset, n, device, True)
+
+
+def bit_reversal_permutation(n: int) -> np.ndarray:
+    """Index array mapping natural order to bit-reversed order (uint32)."""
+    bits = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.uint32)
+    rev = np.zeros_like(idx)
+    for b in range(bits):
+        rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return rev

@@ -131,6 +131,12 @@ def _pad_coeffs(coeffs: torch.Tensor, order: int) -> torch.Tensor:
     return torch.nn.functional.pad(coeffs, (0, order - n))
 
 
+def coset_scale(coeffs: torch.Tensor, offset: int, inverse: bool = False) -> torch.Tensor:
+    """Substitute x -> offset * x (coefficient i scaled by offset^i), or
+    x -> x / offset with ``inverse``."""
+    return F.mont_mul(coeffs, coset_table(offset, coeffs.shape[-1], coeffs.device, inverse))
+
+
 def coset_evaluate(coeffs: torch.Tensor, offset: int, order: int) -> torch.Tensor:
     """Low-degree extension: evaluate on the coset offset * <omega_order>
     (scale by offset^i, then a length-``order`` NTT)."""
@@ -205,6 +211,37 @@ def _zerofier_pow2(points: torch.Tensor) -> torch.Tensor:
         d = polys.shape[-1] - 1                                           # monic, degree d
         polys = poly_multiply(polys[0::2], polys[1::2], out_len=2 * d + 1)
     return polys[0]
+
+
+def prefix_zerofier(root: int, count: int, device=None) -> torch.Tensor:
+    """Coefficients of the zerofier of the first ``count`` powers of
+    ``root``, prod_{i<count}(x - root^i): (NLIMBS, count + 1), Montgomery,
+    monic, on ``device`` (the card unless the caller passes "cpu").  Up to
+    HOST_ZEROFIER_MAX points by host big-int accumulation; above, split by
+    index parity, Z_c(x) = Z_even(x) * root^lo * Z_odd(x / root), the
+    even and odd indices being the first ceil(c/2) and floor(c/2) powers
+    of root^2: one product a level (stark_anatomy_tpu/ops/ntt.py:
+    prefix_zerofier)."""
+    from ..config import resolve_device
+    from ..poly.host_ntt import host_zerofier
+    from ..utils.convert import device_from_ints
+    from .domain import power_table
+
+    device = resolve_device(device)
+    if count <= HOST_ZEROFIER_MAX:
+        pts, acc = [], 1
+        for _ in range(count):
+            pts.append(acc)
+            acc = acc * root % P
+        return device_from_ints(host_zerofier(pts), device)
+    hi, lo = (count + 1) // 2, count // 2
+    root2 = root * root % P
+    even = prefix_zerofier(root2, hi, device)
+    odd = even if lo == hi else prefix_zerofier(root2, lo, device)
+    # prod_{t<lo}(x - root (root^2)^t) = root^lo Z_lo(x / root): coefficient
+    # i picks up root^(lo - i)
+    scale = F.mont_mul(power_table(pow(root, P - 2, P), lo + 1, device), mont_const(pow(root, lo, P), device))
+    return poly_multiply(even, F.mont_mul(odd, scale), out_len=count + 1)
 
 
 def evaluate_domain_horner(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,9 @@ and round: the JAX package's host branch below B*N = 2^14 (HOST_FRI_MAX)
 is not ported, since the card's fold is faster than the host's at B = 1
 too (PERF.md, tools/port_fri_branch.py).  ``make_batch_rpsss`` signs a
 batch of documents at the production parameters (the JAX package's
-BASELINE config 5 is a batch of 64).
+BASELINE config 5 is a batch of 64).  With a ``mesh`` the batch splits
+over its dp axis: each group of B/dp proofs runs on its row's first
+device (a prover per device), with the bytes of the unsplit batch.
 """
 
 from __future__ import annotations
@@ -38,23 +40,42 @@ from .batch import combination, pipeline
 
 
 class BatchProver:
-    """Batched FastStark prover for the Rescue-Prime AIR."""
+    """Batched FastStark prover for the Rescue-Prime AIR.  With ``mesh``
+    (parallel/mesh.py), a batch whose size dp divides runs in dp groups,
+    group g on the first device of the mesh's row g (under
+    torch.distributed, each rank its row's group, and the proofs are
+    gathered); the proofs are the unsplit batch's, byte for byte."""
 
     def __init__(
         self,
         stark: FastStark,
         rp,
         transition_zerofier: TransitionZerofier,
+        mesh=None,
         air=None,
     ):
         self.stark = stark
         self.rp = rp
         self.tz = transition_zerofier
+        self.mesh = mesh
         self.field = Field.main()
         # the symbolic AIR expansion (rhs**3, thousands of monomials) is
         # expensive: callers that already built it pass it in
         self.air = air if air is not None else rp.transition_constraints(stark.omicron)
         self._air_constants = RP.rescue_air_tables(stark)
+        self._on_device = {stark.device: self}
+
+    def _prover_on(self, device) -> "BatchProver":
+        """The prover of this one's parameters on ``device``."""
+        device = torch.device(device)
+        if device not in self._on_device:
+            s = self.stark
+            stark = FastStark(s.field, s.expansion_factor, s.num_colinearity_checks, s.security_level,
+                              s.num_registers, s.original_trace_length,
+                              transition_constraints_degree=s.transition_constraints_degree,
+                              device=device)
+            self._on_device[device] = BatchProver(stark, self.rp, stark.preprocess(), air=self.air)
+        return self._on_device[device]
 
     # ------------------------------------------------------------------
     def prove_batch(
@@ -68,6 +89,35 @@ class BatchProver:
         in the JAX package's order and sizes: B*R*nrand draws of 17 bytes,
         then B*(max_degree+1)."""
         stark = self.stark
+        B = len(inputs)
+        width = stark.num_registers * stark.num_randomizers
+        depth = stark.max_degree(self.air) + 1
+        mesh = self.mesh
+        dist = mesh is not None and mesh.backend == "dist"
+        draws = None
+        if not dist or mesh.rank == 0:
+            draws = [self.field.sample(urandom(17)).value for _ in range(B * (width + depth))]
+        if dist:
+            draws = mesh.broadcast(draws)
+        if mesh is None or B % mesh.shape["dp"]:
+            return self._prove(inputs, proof_streams, draws[: B * width], draws[B * width:])
+        b = B // mesh.shape["dp"]
+        proofs = {}
+        for g in ([mesh.dp_index] if dist else range(mesh.shape["dp"])):
+            lo, hi = g * b, (g + 1) * b
+            proofs[g] = self._prover_on(mesh.devices[g][0])._prove(
+                inputs[lo:hi], proof_streams[lo:hi], draws[lo * width: hi * width],
+                draws[B * width + lo * depth: B * width + hi * depth])
+        if dist:
+            for part in mesh.gather_all(proofs):
+                proofs.update(part)
+        return [p for g in sorted(proofs) for p in proofs[g]]
+
+    def _prove(self, inputs, proof_streams, row_vals: List[int], poly_vals: List[int]) -> List[bytes]:
+        """The proofs of ``inputs`` on this prover's device from the drawn
+        values: B*R*nrand randomizer rows, then B*(max_degree+1)
+        randomizer polynomial coefficients."""
+        stark = self.stark
         rp = self.rp
         dev = stark.device
         B = len(inputs)
@@ -75,15 +125,12 @@ class BatchProver:
         N = stark.fri_domain_length
         nrand = stark.num_randomizers
 
+        max_degree = len(poly_vals) // B - 1
+
         boundaries = [rp.boundary_constraints(rp.hash(inp)) for inp in inputs]
         sk_dev = device_from_ints([inp.value for inp in inputs], dev)
-        rand_rows = device_from_ints(
-            [self.field.sample(urandom(17)).value for _ in range(B * R * nrand)], dev
-        ).reshape(NLIMBS, B, R, nrand).permute(1, 2, 0, 3)
-        max_degree = stark.max_degree(self.air)
-        rand_poly = device_from_ints(
-            [self.field.sample(urandom(17)).value for _ in range(B * (max_degree + 1))], dev
-        ).reshape(NLIMBS, B, max_degree + 1).permute(1, 0, 2)
+        rand_rows = device_from_ints(row_vals, dev).reshape(NLIMBS, B, R, nrand).permute(1, 2, 0, 3)
+        rand_poly = device_from_ints(poly_vals, dev).reshape(NLIMBS, B, max_degree + 1).permute(1, 0, 2)
 
         tables = [stark._boundary_tables(b) for b in boundaries]
         inv_bz = torch.stack([tb[0] for tb in tables])     # (B, R, L, N)

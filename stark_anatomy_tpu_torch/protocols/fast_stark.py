@@ -28,7 +28,11 @@ model evaluator is given.  ``verify`` has the batched device check, and
 ``timer`` the per-phase seconds.  The LDE is one N-point coset transform
 (ops/ntt.py, four-step above NTT_MAX points): the JAX package's
 blocked-coset LDE computes the same values as E transforms of M points,
-which only spared XLA compiles.
+which only spared XLA compiles.  ``prove`` reaches its codewords through
+hooks (``_place_codeword``, ``_lde``, ``_intt``, ``_pointwise``,
+``_roll_left``, ``_x_lde_pows``, ``_commit_rows``, ``_fri``, ...): here
+each is the one-device operation, and parallel/sharded_stark.py
+overrides them to shard the codeword axis.
 """
 
 from __future__ import annotations
@@ -109,15 +113,17 @@ class FastStark(StarkParams):
         if count <= NTT.HOST_ZEROFIER_MAX:
             pts = [e.value for e in self.omicron_powers(count)]
             coeffs = device_from_ints(host_zerofier(pts), self.device)
-            codeword = NTT.coset_evaluate(coeffs, self.generator.value, self.fri_domain_length)
+            codeword = self._lde(coeffs, self.generator.value, self.fri_domain_length)
         else:
-            codeword = NTT.prefix_zerofier_evals(
+            # the rolling evaluation runs over the whole domain (its rolls
+            # cross shards), then the codeword is placed
+            codeword = self._place_codeword(NTT.prefix_zerofier_evals(
                 self._x_lde(), self.omicron.value, self.expansion_factor, count
-            )
+            ))
         rows, tree = self._commit_rows(codeword)
         # the codeword itself is not kept: the prover divides by the inverse
         # and opens through rows and tree (512 MiB less at N = 2^24)
-        return TransitionZerofier(None, rows, F.batch_inv(codeword), tree)
+        return TransitionZerofier(None, rows, self._pointwise(F.batch_inv, codeword), tree)
 
     def _x_lde(self) -> torch.Tensor:
         """Cached FRI-domain codeword of x itself: g * omega_N^j."""
@@ -193,6 +199,49 @@ class FastStark(StarkParams):
         }
         return self._interp_cache
 
+    # -- hooks of the sharded prover (parallel/sharded_stark.py overrides
+    # them; here each is the one-device operation) -------------------------
+    def _place_codeword(self, arr: torch.Tensor):
+        """Placement of a codeword-axis array (the sharded prover shards it)."""
+        return arr
+
+    def _lde(self, coeffs, offset: int, order: int):
+        """Evaluation of coefficients on the coset offset * <omega_order>."""
+        return NTT.coset_evaluate(coeffs, offset, order)
+
+    def _intt(self, values):
+        """The inverse NTT (the sharded prover's is distributed)."""
+        return NTT.intt(values)
+
+    def _pointwise(self, fn, *args):
+        """``fn`` over codewords whose every element depends on the inputs
+        at its own position (the sharded prover runs it shard by shard)."""
+        return fn(*args)
+
+    def _roll_left(self, x, k: int):
+        """The codeword rolled left by k: element i + k at i."""
+        return torch.roll(x, -k, dims=-1)
+
+    def _x_lde_pows(self, exponents) -> torch.Tensor:
+        """The stacked codewords of x^e for each exponent."""
+        return torch.stack([self._x_lde_pow(e) for e in exponents])
+
+    def _draw(self, urandom, count: int, size: int) -> List[bytes]:
+        """``count`` draws of ``size`` bytes, in order."""
+        return [urandom(size) for _ in range(count)]
+
+    def _fri(self, combo, proof_stream: ProofStream) -> List[int]:
+        """FRI over the combination codeword: on the card where its
+        commitment is (the JAX package's fused fold and commit), else on
+        the host; the transcripts are byte-identical."""
+        if use_device_commit(self.fri_domain_length, combo.device):
+            return self.fri.prove(combo, proof_stream)
+        return self.fri.prove_host(ints_from_device(combo), proof_stream)
+
+    def _sync(self) -> None:
+        """Wait for the prover's device(s): a phase ends in its launches."""
+        device_sync(self.device)
+
     def _merkle_from_canon(self, canon) -> MerkleTree:
         """Commitment hook: the paired-leaf tree over canonical host rows."""
         return MerkleTree.from_limbs_paired(canon)
@@ -239,11 +288,11 @@ class FastStark(StarkParams):
         M = self.omicron_domain_length
         N = self.fri_domain_length
         c = F.mont_mul(columns, t["inv_dz"])                     # v_i / Z'(w^i)
-        c = NTT._pad_coeffs(c, M)                                 # zeros beyond n
-        e = NTT.intt(c)
-        a = F.mont_mul(torch.roll(e, -1, dims=-1), t["m_const"])  # A = M * rot(e)
-        a_lde = NTT.coset_evaluate(a, self.generator.value, N)    # (..., R, L, N)
-        return F.mont_mul(a_lde, t["zn_over_xm"])
+        c = self._place_codeword(NTT._pad_coeffs(c, M))           # zeros beyond n
+        e = self._intt(c)
+        a = self._pointwise(F.mont_mul, self._roll_left(e, 1), t["m_const"])  # A = M * rot(e)
+        a_lde = self._lde(a, self.generator.value, N)             # (..., R, L, N)
+        return self._pointwise(F.mont_mul, a_lde, t["zn_over_xm"])
 
     def _x_lde_pow(self, e: int) -> torch.Tensor:
         """Codeword of x^e on the FRI coset, closed form:
@@ -271,7 +320,8 @@ class FastStark(StarkParams):
         while len(self._bz_cache) >= 2:
             self._bz_cache.pop(next(iter(self._bz_cache)))
         t = self._interp_tables()
-        out = _boundary_tables_core(
+        out = self._pointwise(
+            _boundary_tables_core,
             self._stack_coeffs(self.boundary_zerofiers(boundary)),
             self._stack_coeffs(self.boundary_interpolants(boundary)),
             t["x_lde"],
@@ -326,9 +376,10 @@ class FastStark(StarkParams):
         timer = self.timer
 
         # randomized trace columns: (R, L, n)
+        draws = self._draw(urandom, self.num_randomizers * R, 17)
         rand_rows = [
-            [self.field.sample(urandom(17)).value for _ in range(R)]
-            for _ in range(self.num_randomizers)
+            [self.field.sample(draws[i * R + s]).value for s in range(R)]
+            for i in range(self.num_randomizers)
         ]
         if trace_columns is not None:
             rand_cols = torch.stack(
@@ -345,13 +396,13 @@ class FastStark(StarkParams):
 
         with timer.phase("trace_lde"):
             trace_lde = self._trace_lde(columns)                 # (R, L, N)
-            device_sync(dev)
+            self._sync()
 
         # boundary quotients, committed
         with timer.phase("boundary_quotients"):
             inv_bz, interp = self._boundary_tables(boundary)
-            bq_lde = _bq_core(trace_lde, interp, inv_bz)         # (R, L, N)
-            device_sync(dev)
+            bq_lde = self._pointwise(_bq_core, trace_lde, interp, inv_bz)   # (R, L, N)
+            self._sync()
         with timer.phase("commit_bq"):
             bq_trees = []
             bq_rows = []
@@ -364,12 +415,13 @@ class FastStark(StarkParams):
         with timer.phase("air_quotients"):
             if air_evaluator is None:
                 air_evaluator = self._compiled_air(transition_constraints)
-            air_q = _air_quotient_fn(air_evaluator, self.expansion_factor)
-            tq_lde = air_q(t["x_lde"], trace_lde, transition_zerofier.inv_codeword)
+            next_lde = self._roll_left(trace_lde, self.expansion_factor)
+            tq_lde = self._pointwise(_air_quotient_core, air_evaluator, t["x_lde"], trace_lde,
+                                     next_lde, transition_zerofier.inv_codeword)
             # nothing downstream reads the trace LDE (512 MiB a register at
             # N = 2^24)
-            del trace_lde
-            device_sync(dev)
+            del trace_lde, next_lde
+            self._sync()
 
         # randomizer polynomial
         max_degree = self.max_degree(transition_constraints)
@@ -377,13 +429,15 @@ class FastStark(StarkParams):
             if max_degree + 1 > self.bulk_randomizer_threshold:
                 # one seed expanded on the card (H5): per-element host draws
                 # would take minutes at 2^22 coefficients
-                rand_poly = bulk_random_mont(max_degree + 1, dev, urandom)
+                rand_poly = bulk_random_mont(max_degree + 1, dev,
+                                             lambda size: self._draw(urandom, 1, size)[0])
             else:
-                rand_coeffs = [self.field.sample(urandom(17)).value for _ in range(max_degree + 1)]
+                rand_coeffs = [self.field.sample(b).value
+                               for b in self._draw(urandom, max_degree + 1, 17)]
                 rand_poly = device_from_ints(rand_coeffs, dev)
-            rand_lde = NTT.coset_evaluate(rand_poly, self.generator.value, N)
+            rand_lde = self._lde(rand_poly, self.generator.value, N)
             del rand_poly
-            device_sync(dev)
+            self._sync()
         with timer.phase("commit_randomizer"):
             rand_rows, rand_tree = self._commit_rows(rand_lde)
             proof_stream.push(rand_tree.root)
@@ -397,21 +451,16 @@ class FastStark(StarkParams):
         with timer.phase("combination"):
             tq_bounds = self.transition_quotient_degree_bounds(transition_constraints)
             bq_bounds = self.boundary_quotient_degree_bounds(n_rows, boundary)
-            tq_shift = torch.stack([self._x_lde_pow(max_degree - b) for b in tq_bounds])
-            bq_shift = torch.stack([self._x_lde_pow(max_degree - b) for b in bq_bounds])
+            tq_shift = self._x_lde_pows([max_degree - b for b in tq_bounds])
+            bq_shift = self._x_lde_pows([max_degree - b for b in bq_bounds])
             w_dev = torch.stack([mont_const(wv.value, dev) for wv in weights])
-            combo = _combination_core(rand_lde, tq_lde, bq_lde, tq_shift, bq_shift, w_dev)
+            combo = self._pointwise(_combination_core, rand_lde, tq_lde, bq_lde, tq_shift, bq_shift, w_dev)
             del tq_shift, bq_shift, tq_lde, bq_lde, rand_lde
-            device_sync(dev)
+            self._sync()
 
-        # FRI over the combination codeword: on the card where its commitment
-        # is (the JAX package's fused fold and commit), else on the host;
-        # the transcripts are byte-identical
+        # FRI over the combination codeword
         with timer.phase("fri"):
-            if use_device_commit(N, combo.device):
-                indices = self.fri.prove(combo, proof_stream)
-            else:
-                indices = self.fri.prove_host(ints_from_device(combo), proof_stream)
+            indices = self._fri(combo, proof_stream)
             del combo
 
         # linked openings at quadrupled indices (reference: fast_stark.py:154-177)
@@ -684,16 +733,11 @@ def _bq_core(trace_lde, interp, inv_bz):
     return F.mont_mul(F.sub(trace_lde, interp), inv_bz)
 
 
-def _air_quotient_fn(air_evaluator, expansion_factor: int):
-    """AIR quotient for a model evaluator: shift the trace by one cycle (a
-    roll by the expansion factor), evaluate the constraints pointwise and
-    divide by the transition zerofier."""
-
-    def fn(x_lde, trace_lde, inv_tz):
-        next_lde = torch.roll(trace_lde, -expansion_factor, dims=-1)
-        return F.mont_mul(air_evaluator(x_lde, trace_lde, next_lde), inv_tz)
-
-    return fn
+def _air_quotient_core(air_evaluator, x_lde, trace_lde, next_lde, inv_tz):
+    """The AIR quotient: the constraints evaluated pointwise on the trace and
+    its one-cycle shift (``next_lde``, the trace rolled by the expansion
+    factor), divided by the transition zerofier."""
+    return F.mont_mul(air_evaluator(x_lde, trace_lde, next_lde), inv_tz)
 
 
 def _combination_core(rand_lde, tq_lde, bq_lde, tq_shift, bq_shift, weights):

@@ -12,7 +12,9 @@ checks.  Two provers give the same transcript:
   the folded codeword and the next round's inverse-domain table) and the
   H4 passes of its tree, and only the 32-byte root is copied to the host.
   Once a folded codeword has HOST_TAIL_MAX elements or fewer, the
-  remaining rounds fold host ints.  Rounds are sized exactly: the JAX
+  remaining rounds fold host ints.  The commit and the fold go through
+  hooks (``commit_codeword``, ``fold_layer``, ...), which the sharded
+  prover replaces by shard-local ones.  Rounds are sized exactly: the JAX
   package's shape-family padding (``_family_width``) only spared XLA
   compiles, and gives the same transcript;
 * ``prove_host`` folds canonical ints on the host and hashes with N1.
@@ -62,6 +64,19 @@ class Fri:
         self.num_colinearity_tests = num_colinearity_tests
         self._host_u0 = None  # lazy inverse-domain table
         self._u0 = {}         # device -> (NLIMBS, N/2) Montgomery table
+        # the device prover's hooks (the JAX package's commit_codeword, and
+        # the port's fold hook in place of its fused_device_commit flag):
+        # the sharded prover (parallel/sharded_stark.py) installs
+        # shard-local versions.  commit_codeword(codeword) -> (rows, tree)
+        # commits the first layer; initial_table(codeword) -> u its
+        # inverse-domain table; fold_layer(codeword, u, alpha) -> (codeword,
+        # u, rows, tree) folds a round and commits the result;
+        # host_table(u) -> the table as host ints, where the host tail
+        # starts
+        self.commit_codeword = self._commit_codeword_local
+        self.initial_table = lambda codeword: self._initial_u(codeword.device)
+        self.fold_layer = self._fold_layer_local
+        self.host_table = ints_from_device
         assert self.num_rounds() >= 1, "cannot do FRI with less than one round"
 
     # once a folded codeword has this many elements or fewer, the prover
@@ -130,6 +145,17 @@ class Fri:
             self._u0[device] = F.mont_mul(tab, F.mont_const(pow(self.offset, P - 2, P), device))
         return self._u0[device]
 
+    def _commit_codeword_local(self, codeword: torch.Tensor):
+        """The first layer's commitment where the codeword lies: H0 to
+        canonical form and H4 (their plain versions on the CPU)."""
+        return device_commit_paired(codeword)
+
+    def _fold_layer_local(self, codeword: torch.Tensor, u: torch.Tensor, alpha: int):
+        """One round on one device: H6 folds and writes the canonical form
+        and the next table, H4 commits the canonical form."""
+        codeword, canon, u = K.fri_fold(codeword, u, alpha)
+        return codeword, u, DeviceRows(canon), DeviceMerkleTree(MK.merkle_paired(canon))
+
     @staticmethod
     def _fold_ints(codeword: List[int], u: List[int], alpha: int) -> List[int]:
         half = len(codeword) // 2
@@ -151,13 +177,13 @@ class Fri:
         committed and sent in the clear.  Commitments use paired leaves:
         leaf i covers (c[i], c[i + n/2]), the fold's pair."""
         codeword = codeword.contiguous()
-        u = self._initial_u(codeword.device)
+        u = self.initial_table(codeword)
         layers, trees = [], []
         num = self.num_rounds()
         host_ints: Optional[List[int]] = None   # set once on the host tail
         host_u: Optional[List[int]] = None
 
-        rows, tree = device_commit_paired(codeword)
+        rows, tree = self.commit_codeword(codeword)
         for r in range(num):
             proof_stream.push(tree.root)
             layers.append(rows)
@@ -167,14 +193,13 @@ class Fri:
             alpha = self.field.sample(proof_stream.prover_fiat_shamir()).value
             half = self.domain_length >> (r + 1)
             if host_ints is None and half > self.HOST_TAIL_MAX:
-                codeword, canon, u = K.fri_fold(codeword, u, alpha)
-                rows, tree = DeviceRows(canon), DeviceMerkleTree(MK.merkle_paired(canon))
+                codeword, u, rows, tree = self.fold_layer(codeword, u, alpha)
             else:
                 if host_ints is None:
                     # leave the card: copy the current layer and its
                     # inverse-domain table once
                     host_ints = gather_rows(rows, range(2 * half))
-                    host_u = ints_from_device(u)
+                    host_u = self.host_table(u)
                 host_ints = self._fold_ints(host_ints, host_u, alpha)
                 host_u = [v * v % P for v in host_u[: half // 2]]
                 rows, tree = host_ints, self._host_tree(host_ints)

@@ -74,6 +74,7 @@ class StarkParams:
         self.original_trace_length = num_cycles
 
         self.randomized_trace_length = self.original_trace_length + self.num_randomizers
+        self.transition_constraints_degree = transition_constraints_degree
         self.omicron_domain_length = 1 << (
             self.randomized_trace_length * transition_constraints_degree
         ).bit_length()
