@@ -66,7 +66,11 @@ Phases (each prints its wall seconds):
    with device time per launch and bound; the four-step NTT against H3's single-launch path at n = 8192
    (threshold lowered), against the plain transform at 2^16, and at 2^22
    and 2^24 by the forward/inverse round trip and spot values of a sparse
-   polynomial computed on the host; a seeded MiMC proof at
+   polynomial computed on the host, each call two H8 launches and nothing
+   else; H8 ``ntt_tiled`` against its plain version step by step at the
+   path's (8, 2^22) inverse and (8, 2^24) forward and inverse with the
+   coset table, and at a batch of 3 of 2^14, with each step's time and
+   device time, the plain version's time and the bound; a seeded MiMC proof at
    ``make_stark(15, 4, 4, 8)`` with every large branch forced (rolling
    zerofier, bulk randomness, device FRI, four-step NTT) on the card and
    on the CPU, identical and cross-verified; then a MiMC chain of 2^20
@@ -86,10 +90,13 @@ Phases (each prints its wall seconds):
    (cProfile); then the card against the CPU byte for byte: a seeded
    batch of 3 at the tests' small parameters, a seeded slow ``Stark`` proof at
    tests/test_stark.py's parameters, and ``entry()``'s core outputs at
-   B = 2; and ``interpolate_generic`` round trips at n = 16 and 256;
+   B = 2; and ``interpolate_generic`` round trips at n = 16 and 256, with
+   K17's steps timed on the card and on the CPU beside their bound;
 7. multi-GPU sharding on the one card (in-process shards, a virtual mesh
    of cuda:0 repeated): H3 (the distributed NTT's column transforms
-   (w, 8, S) and its row transforms' four-step inner shapes), H0 (the
+   (w, 8, S) and its row transforms' former four-step inner shapes), H8
+   (the row transforms of every shard length B > 8192, forward and
+   inverse, timed at S = 8), H0 (the
    cross twiddle (w, 8, S) and a shard's coset scale), H6 (a pair block's
    top round) and H4 (one launch over the S pair blocks) at the sharded
    2^20 path's shapes for S = 2, 4, 8 against their plain versions, and
@@ -163,13 +170,16 @@ KERNEL_INFO = {
     "seed_expand": ("stark_anatomy_tpu/utils/rand.py:33", None),
     "fri_fold": ("stark_anatomy_tpu/protocols/fri.py:43", None),
     "fri_fold_batched": ("stark_anatomy_tpu/protocols/fri.py:53", None),
+    "ntt_tiled": ("stark_anatomy_tpu/ops/stage_ntt.py:383", None),
 }
 # the profiler's kernel names
 PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
                 "add_mod": "AddMod", "sub_mod": "SubMod",
                 "rescue_perm": "rescue_kernel", "ntt": "ntt_kernel",
                 "merkle": "merkle_kernel", "seed_expand": "seed_expand_kernel",
-                "fri_fold": "fri_fold_kernel", "fri_fold_batched": "fri_fold_batched_kernel"}
+                "fri_fold": "fri_fold_kernel", "fri_fold_batched": "fri_fold_batched_kernel",
+                "ntt_tiled": "tiled_"}
+TILED_STEPS = ("tiled_columns_kernel", "tiled_rows_kernel")   # H8's two launches
 RESCUE_BATCHES = (1, 7, 4096)
 NTT_SIZES = tuple(1 << k for k in range(14))   # every n H3 takes: its cluster path from 1024 up
 NTT_MAIN = (2, 8, 4096)          # the LDE: coset_evaluate of two trace columns
@@ -181,7 +191,7 @@ PHASES = ("pipeline", "commit", "combination", "fri", "openings")
 # the large-trace path: bench.py:229-289 (seg_mimc) proves a MiMC chain of
 # 2^20 steps; its omicron domain is 2^22 and its FRI domain 2^24
 MIMC_STEPS = 1 << 20
-LARGE_KERNELS = ("merkle", "seed_expand", "fri_fold")    # launched on that path, not in a sign
+LARGE_KERNELS = ("merkle", "seed_expand", "fri_fold", "ntt_tiled")   # launched on that path, not in a sign
 EXPAND_DEEP = (1 << 16) + 1                 # every seed has counters that need five rounds or more here
 EXPAND_MAIN = 1 << 22                       # the 2^20 path's randomizer coefficients: H5's record
 # of H5's 10 x 8 G steps, 7 of round 0's are the same for every counter
@@ -189,11 +199,17 @@ EXPAND_MAIN = 1 << 22                       # the 2^20 path's randomizer coeffic
 EXPAND_HOISTED_G = 7
 FOLD_HALF = 1 << 23                         # its top FRI round
 NTT_LARGE = (22, 24)                        # log2 of its transforms: the trace iNTT, the LDEs
-# H3's shapes inside those four-step transforms: n1 rows of n2 points
+# H3's shapes inside those transforms under the four-step glue H8
+# replaced: n1 rows of n2 points
 # (the first pass with the twiddles as its post-scale, the second without)
 NTT_INNER = ((4096, 8, 4096), (2048, 8, 2048))
 NTT_PAIRED = (32, 8, 8192)                  # the persistent path's two-block instance (more than 16 rows at 8192)
 NTT_SPOT_ROWS = 16                          # rows of an inner launch held against the plain transform
+# H8 against its plain version, whole: (lead, log2 n, inverse, coset
+# table) at the path's trace iNTT and LDEs, and a batch of 3; the first
+# LDE is H8's record
+TILED_CASES = (((), 24, False, True), ((), 24, True, True), ((), 22, True, False),
+               ((3,), 14, False, True), ((3,), 14, True, True))
 FRI_TREE_LOGS = range(15, 25)               # the FRI layers of that path the card commits: 2^24 down to 2^15
 TREE_PATH = 1 << 24                         # its largest tree: the quotients', FRI's first layer
 FOLD_BYTES = 176    # per folded element: c_i, c_{i+h}, u_i read; folded, canon, u_i^2 / 2 written
@@ -220,7 +236,7 @@ SCALING_SHARDS = (1, 2, 4, 8)
 SCALING_REPS = 2
 SHARD_SPOT_ROWS = 256                       # rows of an H3/H0 launch held against the plain version
 SHARDED_KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "ntt", "merkle", "seed_expand",
-                   "fri_fold")              # every kernel the sharded 2^20 prove launches
+                   "fri_fold", "ntt_tiled")   # every kernel the sharded 2^20 prove launches
 
 
 def det_urandom(seed: bytes):
@@ -484,7 +500,7 @@ def kernel_record(name: str, max_abs_err: int, ms: float, plain_ms: float, bound
     any of these functions, so library_ms is null."""
     from stark_anatomy_tpu_torch.field import kernels as K
 
-    source = "merkle.cu" if K.LIBRARY[name] == "stark_merkle" else "field.cu"
+    source = os.path.basename(K.SOURCES[K.LIBRARY[name]])
     return {"name": name, "route": "cuda", "source": "stark_anatomy_tpu_torch/csrc/" + source,
             "replaces": KERNEL_INFO[name][0], "launches": None, "max_abs_err": max_abs_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
@@ -537,6 +553,59 @@ def profile_all(fn):
     return wall, (sum(us for _, us in seen.values()) / 1e6 if seen else None), seen
 
 
+def check_tiled(compare, label, x, inverse, pre, post):
+    """H8's two steps on the card against its plain version on the same
+    inputs, whole (step 1 from the plain step 0's output); returns (both
+    steps on the card, both steps of the plain version) as functions."""
+    import torch
+
+    from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.ops.ntt import tiled_tables
+
+    n1, inner, twiddles, outer, n_inv = tiled_tables(x.shape[-1], inverse, x.device)
+    y = K.ntt_tiled(x, 0, n1, inner, twiddles, scale=pre)
+    torch.cuda.synchronize()
+    want = K.ntt_tiled_plain(x, 0, n1, inner, twiddles, scale=pre)
+    compare("ntt_tiled", f"{label} step 0 (columns) against plain", y, want)
+    del y
+    z = K.ntt_tiled(want, 1, n1, outer, n_inv=n_inv, scale=post)
+    torch.cuda.synchronize()
+    compare("ntt_tiled", f"{label} step 1 (rows) against plain", z,
+            K.ntt_tiled_plain(want, 1, n1, outer, n_inv=n_inv, scale=post))
+    del z, want
+
+    def run():
+        return K.ntt_tiled(K.ntt_tiled(x, 0, n1, inner, twiddles, scale=pre), 1, n1, outer,
+                           n_inv=n_inv, scale=post)
+
+    def plain():
+        return K.ntt_tiled_plain(K.ntt_tiled_plain(x, 0, n1, inner, twiddles, scale=pre), 1, n1, outer,
+                                 n_inv=n_inv, scale=post)
+
+    return run, plain
+
+
+def profile_steps(fn, iters: int) -> list:
+    """Device microseconds per launch of each of H8's steps (TILED_STEPS)
+    over ``iters`` calls of ``fn`` (torch.profiler; None where it saw
+    none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    seen = device_us(prof)
+    out = []
+    for tag in TILED_STEPS:
+        hits = [v for k, v in seen.items() if tag in k]
+        out.append(sum(us for _, us in hits) / sum(c for c, _ in hits) if hits else None)
+    return out
+
+
 def large_path(dev, smi, records, worst_err, compare) -> None:
     """Phase 5: the large-trace path's kernels against their plain
     versions, the four-step NTT, the card against the CPU with every large
@@ -550,7 +619,7 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
     from stark_anatomy_tpu_torch.field.scalar import Field, FieldElement, P
     from stark_anatomy_tpu_torch.models import mimc as MM
     from stark_anatomy_tpu_torch.ops import ntt as NTT
-    from stark_anatomy_tpu_torch.ops.domain import DOMAINS
+    from stark_anatomy_tpu_torch.ops.domain import DOMAINS, coset_table
     from stark_anatomy_tpu_torch.parallel.pipeline_prover import PipelinedMiMCProver
     from stark_anatomy_tpu_torch.protocols.fri import Fri
     from stark_anatomy_tpu_torch.utils.convert import canonical_np, device_from_ints, ints_from_device
@@ -641,7 +710,8 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
     assert not any(bool(c.any()) for c in MK._COUNTERS.values()), "H4 left a ticket counted"
     torch.cuda.empty_cache()
 
-    # H3's persistent path at the four-step's inner shapes, and its
+    # H3's persistent path at the inner shapes of the four-step glue that
+    # H8 replaced (large batches of 4096 and 2048 points), and its
     # two-block instance at 8192: NTT_SPOT_ROWS seeded rows of each launch
     # against the plain transform on the card, with the twiddle post-scale
     # (a row each) and without.  Bound: the input, the output and the
@@ -676,12 +746,18 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
             want = NTT.ntt(x, inverse, pre, post[0])
             saved, NTT.NTT_MAX = NTT.NTT_MAX, 64
             try:
+                K.reset_launch_counts()
                 got = NTT.ntt(x, inverse, pre, post[0])
+                torch.cuda.synchronize()
+                tiled = K.LAUNCHES["ntt_tiled"]
+                want_cpu = NTT.ntt(x.cpu(), inverse, pre.cpu(), post[0].cpu())   # H8's plain version
             finally:
                 NTT.NTT_MAX = saved
-            torch.cuda.synchronize()
+            assert tiled > 0, "the threshold-64 route launched no H8"
             compare("ntt", f"four-step n=8192 batch={batch} {'inverse' if inverse else 'forward'} "
                     f"scaled, threshold 64, against one launch", got, want)
+            compare("ntt_tiled", f"threshold-64 route n=8192 batch={batch} {'inverse' if inverse else 'forward'} "
+                    f"scaled ({tiled} H8 launches: rows of 128 points) against the route on the CPU", got, want_cpu)
     n = 1 << 16
     x, pre = random_codeword((8, n), 3120, dev), random_codeword((8, n), 3121, dev)
     for inverse in (False, True):
@@ -718,11 +794,46 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
         ms = time_launches(call, 5)
         wall, busy, _ = profile_all(call)
         bound = bound_ms(1, (2 if inv else 3) * 32 * n, ntt_ops(1, n, 0 if inv else 1, inv))
+        # one call on the card's route: two H8 launches and nothing else
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        assert launches == {"ntt_tiled": 2}, f"the 2^{log_n} transform's launches: {launches}"
         print(f"  four-step {'intt' if inv else 'coset_evaluate'} n=2^{log_n}: round trip and 8 spot "
               f"values of ntt and coset_evaluate equal the host's; {ms:.4f} ms/call (CUDA events), "
               f"device busy {fmt_us(None if busy is None else busy * 1e6)} of one call, bound "
-              f"{bound[0]:.6f} ms ({bound[1]})")
+              f"{bound[0]:.6f} ms ({bound[1]}); launches {launches}, transient peak "
+              f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB")
     del x, back, c
+    torch.cuda.empty_cache()
+
+    # H8 step by step against its plain version, whole, at the path's
+    # transforms and a batch of 3; then both steps' time (CUDA events),
+    # each step's device time, the plain version's time and the bound as
+    # for the four-step rows above (the input, the output and the coset
+    # table once; the butterflies and a product a point for the scale or
+    # 1/n).  The first case, the 2^24 LDE, gives H8's record.
+    for lead, log_n, inverse, coset in TILED_CASES:
+        n = 1 << log_n
+        x = random_codeword(lead + (8, n), 3200 + log_n + inverse, dev)
+        table = coset_table(g, n, dev, inverse) if coset else None
+        pre, post = (None, table) if inverse else (table, None)
+        label = f"{lead + (8, n)} {'inverse' if inverse else 'forward'}{' coset' if coset else ''}"
+        run, plain = check_tiled(compare, label, x, inverse, pre, post)
+        ms = time_launches(run, 10)
+        steps_us = profile_steps(run, 5)
+        plain_ms = time_launches(plain, 1, warm=0)
+        batch = x.numel() // (8 * n)
+        bound = bound_ms(1, (2 * batch + coset) * 32 * n, ntt_ops(batch, n, int(coset), inverse))
+        if (lead, log_n, inverse, coset) == TILED_CASES[0]:
+            records["ntt_tiled"] = record("ntt_tiled", ms, plain_ms, bound)
+        print(f"  ntt_tiled {label}: {ms:.6f} ms/transform (2 launches, CUDA events), device step 0 "
+              f"{fmt_us(steps_us[0])}, step 1 {fmt_us(steps_us[1])}; plain {plain_ms:.3f} ms; bound "
+              f"{bound[0]:.6f} ms ({bound[1]}) on {smi}")
+        del x, run, plain
     torch.cuda.empty_cache()
 
     # the card against the CPU with every large branch forced
@@ -769,7 +880,8 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
     path_launches = dict(K.LAUNCHES)
     assert ok, f"verify rejected the large proof: {stark.last_rejection}"
     print(f"  launches in the large path (preprocess, prove, verify): {path_launches}")
-    for name in ("mont_mul", "mont_pow", "add_mod", "sub_mod", "ntt", "merkle", "seed_expand", "fri_fold"):
+    # every transform of this path is above 8192 points: H8's, not H3's
+    for name in ("mont_mul", "mont_pow", "add_mod", "sub_mod", "ntt_tiled", "merkle", "seed_expand", "fri_fold"):
         assert path_launches[name] > 0, f"{name} was not launched on the large path"
     for name in LARGE_KERNELS:
         records[name]["launches"] = path_launches[name]
@@ -849,9 +961,12 @@ def batch_path(dev, smi, records, worst_err, compare, scheme) -> None:
 
     from stark_anatomy_tpu_torch.entry import entry
     from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field import ops as F
     from stark_anatomy_tpu_torch.field.scalar import Field, P
     from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime
     from stark_anatomy_tpu_torch.ops import evaluate_generic, interpolate_generic
+    from stark_anatomy_tpu_torch.ops.interpolate import _synthetic_divide_all, _tree_sum_last
+    from stark_anatomy_tpu_torch.ops.ntt import zerofier
     from stark_anatomy_tpu_torch.parallel.batch_prover import BatchProver, make_batch_rpsss
     from stark_anatomy_tpu_torch.protocols.fast_stark import FastStark
     from stark_anatomy_tpu_torch.protocols.stark import Stark
@@ -1020,7 +1135,23 @@ def batch_path(dev, smi, records, worst_err, compare, scheme) -> None:
         assert back == vals, f"interpolate_generic round trip at n = {n} failed on the card"
         cpu_coeffs = interpolate_generic(device_from_ints(pts, "cpu"), device_from_ints(vals, "cpu"))
         assert ints_from_device(coeffs) == ints_from_device(cpu_coeffs), f"interpolate_generic n = {n}"
-        print(f"  interpolate_generic n = {n}: round trip on the card, coefficients equal the CPU's")
+        # K17's two steps (the synthetic divisions and the sum over the
+        # points, glue over H0 and H1) on the card and on CPU copies (their
+        # plain versions); bound: the zerofier, points and weights read and
+        # the coefficients written once, and per point and coefficient a
+        # product and an add for the division, a product for the weight and
+        # an add for the sum
+        z, x = zerofier(device_from_ints(pts, dev)), device_from_ints(pts, dev)
+        w = device_from_ints(vals, dev)
+        k17 = (lambda z, x, w: _tree_sum_last(F.mont_mul(w.unsqueeze(0), _synthetic_divide_all(z, x))))
+        ms = time_launches(lambda: k17(z, x, w), 5)
+        _, busy, seen = profile_all(lambda: k17(z, x, w))
+        plain_ms = host_ms(lambda: k17(z.cpu(), x.cpu(), w.cpu()), 3)
+        bound = bound_ms(n * n, (3 * n + 1) * 32, 2 * (MUL_OPS + ADD_OPS))
+        print(f"  interpolate_generic n = {n}: round trip on the card, coefficients equal the CPU's; K17's "
+              f"steps {ms:.4f} ms/call (CUDA events), device busy {fmt_us(None if busy is None else busy * 1e6)} "
+              f"in {sum(c for c, _ in seen.values())} launches, plain (CPU) {plain_ms:.3f} ms, bound "
+              f"{bound[0]:.9f} ms ({bound[1]}) on {smi}")
 
 
 def sharded_path(dev, smi, compare, steps: int = MIMC_STEPS) -> None:
@@ -1065,7 +1196,8 @@ def sharded_path(dev, smi, compare, steps: int = MIMC_STEPS) -> None:
 
     # H3's column transforms (w, 8, S) and H0's cross twiddle at every
     # distributed transform of the path (n = M and N, S = 2, 4, 8), and
-    # H3 at the row transforms' four-step inner shapes (n1 rows of n2)
+    # H3 at the row transforms' inner shapes under the four-step glue
+    # that H8 replaced (n1 rows of n2)
     inner = set()
     for S in SHARD_COUNTS:
         for n in (M, N):
@@ -1108,6 +1240,24 @@ def sharded_path(dev, smi, compare, steps: int = MIMC_STEPS) -> None:
              f"({K.ntt_plan(batch, n.bit_length() - 1, sms)[0]} path)", got,
              lambda r: K.ntt_plain(x[r], args[0], None, None, post[r] if scaled else None), rows)
         del x, post, got
+    # H8 at every shard row length B > NTT_MAX of the path (the row
+    # transforms of the distributed NTT at n = M and N, S = 2, 4, 8),
+    # forward and inverse, whole against its plain version; its time at
+    # S = 8's rows, the LDE's forward and the trace iNTT's inverse
+    for B in sorted({n // S for S in SHARD_COUNTS for n in (M, N) if n // S > NTT.NTT_MAX}):
+        for inverse in (False, True):
+            x = random_codeword((8, B), 7600 + B.bit_length() + inverse, dev)
+            label = f"shard row (8, 2^{B.bit_length() - 1}) {'inverse' if inverse else 'forward'}"
+            run, plain = check_tiled(compare, label, x, inverse, None, None)
+            if (B, inverse) in ((N // SHARD_COUNTS[-1], False), (M // SHARD_COUNTS[-1], True)):
+                ms, steps_us = time_launches(run, 20), profile_steps(run, 10)
+                plain_ms = time_launches(plain, 1, warm=0)
+                bound = bound_ms(1, 2 * 32 * B, ntt_ops(1, B, 0, inverse))
+                print(f"  ntt_tiled {label}: {ms:.6f} ms/transform (2 launches, CUDA events), device step 0 "
+                      f"{fmt_us(steps_us[0])}, step 1 {fmt_us(steps_us[1])}; plain {plain_ms:.3f} ms; bound "
+                      f"{bound[0]:.6f} ms ({bound[1]}) on {smi}")
+            del x, run, plain
+    torch.cuda.empty_cache()
     # H0's coset scale and H6's top round on one shard, H4 over the S pair
     # blocks (one launch for the S subtrees); the largest S gives timings
     for S in SHARD_COUNTS:

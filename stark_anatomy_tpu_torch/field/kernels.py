@@ -12,15 +12,19 @@ field/limb_arith.py:add_mod_rows and sub_mod_rows.  H2
 launch (stark_anatomy_tpu/models/rescue_prime.py:_permutation_scan), and
 H3 ``ntt`` a whole NTT of up to 8192 points in one launch
 (stark_anatomy_tpu/ops/ntt.py:ntt_core), on one of two paths by the
-batch (``ntt_plan``).  H6 ``fri_fold`` runs one round of
+batch (``ntt_plan``); H8 ``ntt_tiled`` runs a larger one, up to 2^24
+points, in two launches, a step each (stark_anatomy_tpu/ops/stage_ntt.py:
+staged_ntt, the four-step transform).  H6 ``fri_fold`` runs one round of
 the FRI fold (stark_anatomy_tpu/protocols/fri.py:_fold_kernel and
 _square_half) and writes the folded codeword's canonical form beside it;
 H7 ``fri_fold_batched`` does the same for a batch of codewords, one
 challenge per proof (stark_anatomy_tpu/protocols/fri.py:
 _fold_kernel_batched).
-The sources are csrc/field.cu and the word arithmetic it shares with
-csrc/merkle.cu, csrc/field_arith.cuh; the header of field.cu says what
-bounds each kernel and how the design answers it.
+The sources are csrc/field.cu and csrc/ntt_tiled.cu (H8), the word
+arithmetic they share with csrc/merkle.cu, csrc/field_arith.cuh, and
+H3's passes, which H8's blocks run too, csrc/ntt_passes.cuh; the header
+of each source says what bounds each kernel and how the design answers
+it.
 
 Each wrapper takes int32 limb tensors (..., 8, n) in Montgomery form:
 * on a CPU tensor it runs the kernel's plain PyTorch version below;
@@ -55,17 +59,18 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {                       # library stem -> CUDA source
     "stark_field": os.path.join(_PKG, "csrc", "field.cu"),
     "stark_merkle": os.path.join(_PKG, "csrc", "merkle.cu"),
+    "stark_ntt_tiled": os.path.join(_PKG, "csrc", "ntt_tiled.cu"),
 }
-HEADERS = (os.path.join(_PKG, "csrc", "field_arith.cuh"),)    # included by both
+HEADERS = tuple(os.path.join(_PKG, "csrc", h) for h in ("field_arith.cuh", "ntt_passes.cuh"))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 BINARY = ("mont_mul", "add_mod", "sub_mod")
 KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "rescue_perm", "ntt", "merkle",
-           "seed_expand", "fri_fold", "fri_fold_batched")
-LIBRARY = {name: "stark_merkle" if name in ("merkle", "seed_expand") else "stark_field"
-           for name in KERNELS}
+           "seed_expand", "fri_fold", "fri_fold_batched", "ntt_tiled")
+LIBRARY = {name: "stark_merkle" if name in ("merkle", "seed_expand")
+           else "stark_ntt_tiled" if name == "ntt_tiled" else "stark_field" for name in KERNELS}
 RESCUE_M = 2            # Rescue-Prime state width
 RESCUE_ROUNDS = 27
 # The Rescue S-box x^(1/3) is x^ALPHA_INV, ALPHA_INV = (2p - 1)/3 =
@@ -112,6 +117,9 @@ NTT_MAX = 8192          # H3 holds a whole transform in shared memory (one block
 NTT_CLUSTER = 8         # blocks a transform is spread over when the batch cannot fill the card
 NTT_CLUSTER_MIN = 1024  # ... from n = 1024 up (16 threads a block; below, a block is enough)
 NTT_STAGE = 4096        # the n whose persistent path stages each row (one block an SM)
+TILED_MIN = 8           # H8's inner transforms: a cluster holds 8 of them (one sector of a limb row) ...
+TILED_MAX = 4096        # ... of at most 4096 points (n/8 threads a block, 16 n bytes)
+TILED_ROWS = 1 << 20    # points of the rows H8's plain version transforms at a time
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _SMS: Dict[int, int] = {}                 # device index -> its SM count
@@ -168,6 +176,8 @@ _ARGTYPES = {
     + [ctypes.c_void_p, ctypes.c_int],
     "fri_fold_batched": [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_uint64] * 2
     + [ctypes.c_void_p, ctypes.c_int],
+    "ntt_tiled": [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 2 + [ctypes.c_int],
 }
 
 
@@ -448,6 +458,23 @@ def _sm_count(device: torch.device) -> int:
     return _SMS[device.index]
 
 
+def pack_words(limbs: torch.Tensor) -> torch.Tensor:
+    """The contiguous (..., n, 4) int32 words of a (..., 8, n) limb tensor:
+    each element's four 32-bit words side by side, least significant first
+    (16 bytes an element: H3's twiddle tables, H8's intermediate)."""
+    x = limbs.long() & 0xFFFF
+    words = x[..., 0::2, :] | (x[..., 1::2, :] << 16)                   # (..., 4, n)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+    return words.transpose(-1, -2).contiguous()
+
+
+def unpack_words(words: torch.Tensor) -> torch.Tensor:
+    """The contiguous (..., 8, n) limbs of packed (..., n, 4) words."""
+    w = words.long() & 0xFFFFFFFF
+    limbs = torch.stack([w & 0xFFFF, w >> 16], dim=-1).flatten(-2)      # (..., n, 8)
+    return limbs.transpose(-1, -2).to(torch.int32).contiguous()
+
+
 def twiddle_words(powers: torch.Tensor) -> torch.Tensor:
     """The contiguous (n, 4) int32 words of an (8, n) power table, each
     element's four 32-bit words side by side (one 16-byte load in H3).
@@ -456,10 +483,7 @@ def twiddle_words(powers: torch.Tensor) -> torch.Tensor:
     hit = _TWIDDLE_WORDS.get(key)
     if hit is not None and hit[0]() is powers and hit[1] == powers._version:
         return hit[2]
-    limbs = powers.long() & 0xFFFF
-    words = limbs[0::2] | (limbs[1::2] << 16)                       # (4, n)
-    words = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
-    words = words.t().contiguous()
+    words = pack_words(powers)
     _TWIDDLE_WORDS[key] = (weakref.ref(powers, lambda _: _TWIDDLE_WORDS.pop(key, None)),
                            powers._version, words)
     return words
@@ -497,6 +521,91 @@ def ntt(values: torch.Tensor, powers: torch.Tensor, n_inv: Optional[torch.Tensor
         *_stream(values),
     )
     _finish("ntt", err)
+    return out
+
+
+def tiled_split(n: int) -> Tuple[int, int]:
+    """(n1, n2) of H8's transform of n points: n1 = 2^floor(log2(n) / 2),
+    n2 = n / n1 >= n1."""
+    n1 = 1 << ((n.bit_length() - 1) // 2)
+    return n1, n // n1
+
+
+def tiled_layout(values: torch.Tensor, step: int, n1: int) -> Tuple[int, int, int]:
+    """(batch, n, n2) of an input H8's ``step`` takes: contiguous int32
+    limbs (..., 8, n) for step 0, packed words (..., n, 4) for step 1, n a
+    power of two, n1 and n2 = n / n1 powers of two in [TILED_MIN,
+    TILED_MAX].  Raises ValueError for any other input."""
+    if step not in (0, 1):
+        raise ValueError(f"ntt_tiled: the step is 0 (columns) or 1 (rows), got {step}")
+    shape = f"(..., {NLIMBS}, n)" if step == 0 else "(..., n, 4)"
+    if (values.dtype != torch.int32 or values.dim() < 2 or not values.is_contiguous()
+            or (values.shape[-2] != NLIMBS if step == 0 else values.shape[-1] != 4)):
+        raise ValueError(f"ntt_tiled: step {step} takes a contiguous int32 {shape} tensor; "
+                         f"got {tuple(values.shape)} {values.dtype}")
+    n = values.shape[-1] if step == 0 else values.shape[-2]
+    n2 = n // max(n1, 1)
+    if n1 * n2 != n or not all(TILED_MIN <= k <= TILED_MAX and k & (k - 1) == 0 for k in (n1, n2)):
+        raise ValueError(f"ntt_tiled: n = n1 n2 with n1, n2 powers of two in [{TILED_MIN}, "
+                         f"{TILED_MAX}]; got n = {n}, n1 = {n1}")
+    return math.prod(values.shape[:-2]), n, n2
+
+
+def ntt_tiled(values: torch.Tensor, step: int, n1: int, powers: torch.Tensor,
+              twiddles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              n_inv: Optional[torch.Tensor] = None,
+              scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """H8: one of the two launches of an NTT of n = n1 n2 points (input
+    index j = j1 + n1 j2, output index k = k2 + n2 k1), batched over the
+    leading axes; csrc/ntt_tiled.cu.
+    * step 0, the columns: ``values`` (..., 8, n) limbs; ``powers`` the
+      (8, n2) table w_n2^j (the inverse's w_n2^-j); ``twiddles`` the (8, n1)
+      table w_n^(n2 i) and the (8, n2) table w_n^i (w_n^-i for the
+      inverse); ``scale`` an optional pre-scale.  Returns the packed
+      (..., n, 4) words Y[k2 n1 + j1] = w_n^(j1 k2) sum_j2 w_n2^(j2 k2)
+      (scale x)[j1 + n1 j2].
+    * step 1, the rows: ``values`` that Y; ``powers`` the (8, n1) table;
+      ``n_inv`` an optional (8, 1) factor; ``scale`` an optional
+      post-scale.  Returns (..., 8, n) limbs X[k2 + n2 k1] = (scale n_inv
+      sum_j1 w_n1^(j1 k1) Y[k2 n1 + j1])[k2 + n2 k1].
+    A scale is an (8, n) table, or an (..., 8, n) one that matches the
+    batch."""
+    if values.device.type == "cpu":
+        return ntt_tiled_plain(values, step, n1, powers, twiddles, n_inv, scale)
+    _check_cuda("ntt_tiled", values, powers,
+                *(t for t in (*(twiddles or ()), n_inv, scale) if t is not None))
+    batch, n, n2 = tiled_layout(values, step, n1)
+    lead = tuple(values.shape[:-2])
+    _check_table("ntt_tiled: powers", powers, (NLIMBS, n2 if step == 0 else n1))
+    if step == 0:
+        if twiddles is None or n_inv is not None:
+            raise ValueError("ntt_tiled: step 0 takes the twiddle tables, and 1/n rides step 1")
+        _check_table("ntt_tiled: twiddles", twiddles[0], (NLIMBS, n1))
+        _check_table("ntt_tiled: twiddles", twiddles[1], (NLIMBS, n2))
+    elif n_inv is not None:
+        _check_table("ntt_tiled: n_inv", n_inv, (NLIMBS, 1))
+    if values.data_ptr() % 16:
+        raise ValueError("ntt_tiled: the kernel takes a 16-byte aligned input")
+    scale_sb = 0
+    if scale is not None:
+        strides = operand_strides(scale, lead, n)
+        if strides is None or strides[2] != 1:
+            raise ValueError(f"ntt_tiled: the scale must be a contiguous int32 (..., {NLIMBS}, {n}) "
+                             f"table that matches or broadcasts the batch; got {tuple(scale.shape)} "
+                             f"{scale.dtype}")
+        scale_sb = strides[0]
+    out = torch.empty(lead + ((n, 4) if step == 0 else (NLIMBS, n)), dtype=torch.int32,
+                      device=values.device)
+    if out.numel() == 0:
+        return out
+    coarse, fine = (twiddle_words(t).data_ptr() for t in twiddles) if step == 0 else (None, None)
+    err = _entry("ntt_tiled")(
+        out.data_ptr(), values.data_ptr(), batch, n1.bit_length() - 1, n2.bit_length() - 1, step,
+        twiddle_words(powers).data_ptr(), coarse, fine,
+        None if scale is None else scale.data_ptr(), scale_sb,
+        None if n_inv is None else n_inv.data_ptr(), *_stream(values),
+    )
+    _finish("ntt_tiled", err)
     return out
 
 
@@ -738,6 +847,46 @@ def ntt_plain(values: torch.Tensor, powers: torch.Tensor, n_inv: Optional[torch.
     return x
 
 
+def ntt_tiled_plain(values: torch.Tensor, step: int, n1: int, powers: torch.Tensor,
+                    twiddles: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    n_inv: Optional[torch.Tensor] = None,
+                    scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of H8's steps (``ntt_tiled``): the four-step glue the
+    port ran before H8, a transpose to rows, ``ntt_plain`` over them and a
+    transpose back, with the twiddle w_n^(j1 k2) = w_n^(n2 (e / n2))
+    w_n^(e mod n2), e = j1 k2, from the two tables; TILED_ROWS points of
+    rows at a time, so that the card holds its temporaries at 2^24."""
+    batch, n, n2 = tiled_layout(values, step, n1)
+    lead, dev = values.shape[:-2], values.device
+    scale = None if scale is None else scale.reshape(-1, NLIMBS, n)    # (1 or batch, 8, n)
+    if step == 0:
+        coarse, fine = twiddles
+        lg2 = n2.bit_length() - 1
+        x = values.view(batch, NLIMBS, n2, n1)
+        out = torch.empty((batch, n2, n1, 4), dtype=torch.int32, device=dev)
+        width = max(1, TILED_ROWS // n2)
+        for b in range(batch):
+            pre = None if scale is None else scale[b % scale.shape[0]].view(NLIMBS, n2, n1)
+            for c in range(0, n1, width):
+                e = torch.arange(c, min(c + width, n1), device=dev).view(-1, 1) * torch.arange(n2, device=dev)
+                tw = mont_mul_plain(coarse[:, e >> lg2].transpose(0, 1), fine[:, e & (n2 - 1)].transpose(0, 1))
+                rows = x[b, :, :, c:c + width].permute(2, 0, 1)                # [j1][l][j2]
+                p = None if pre is None else pre[:, :, c:c + width].permute(2, 0, 1)
+                y = ntt_plain(rows, powers, None, p, tw)                        # [j1][l][k2]
+                out[b, :, c:c + width] = pack_words(y).transpose(0, 1)          # [k2][j1][w]
+        return out.view(lead + (n, 4))
+    y = values.view(batch, n2, n1, 4)
+    out = torch.empty((batch, NLIMBS, n1, n2), dtype=torch.int32, device=dev)
+    height = max(1, TILED_ROWS // n1)
+    for b in range(batch):
+        post = None if scale is None else scale[b % scale.shape[0]].view(NLIMBS, n1, n2)
+        for r in range(0, n2, height):
+            p = None if post is None else post[:, :, r:r + height].permute(2, 0, 1)
+            z = ntt_plain(unpack_words(y[b, r:r + height]), powers, n_inv, None, p)   # [k2][l][k1]
+            out[b, :, :, r:r + height] = z.permute(1, 2, 0)
+    return out.view(lead + (NLIMBS, n))
+
+
 def _fold_plain(codeword: torch.Tensor, u: torch.Tensor, alpha_m: torch.Tensor):
     """The fold of H6 and H7 over the plain field functions, in the JAX
     package's order (_fold_kernel, _fold_kernel_batched), the canonical
@@ -770,4 +919,5 @@ PLAIN = {
     "add_mod": add_mod_plain, "sub_mod": sub_mod_plain,
     "rescue_perm": rescue_permutation_plain, "ntt": ntt_plain,
     "fri_fold": fri_fold_plain, "fri_fold_batched": fri_fold_batched_plain,
+    "ntt_tiled": ntt_tiled_plain,
 }

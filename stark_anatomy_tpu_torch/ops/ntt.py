@@ -1,6 +1,5 @@
-"""The NTT: one launch of H3 up to NTT_MAX points, a four-step transform
-over H3 above.  The port of stark_anatomy_tpu/ops/ntt.py and
-ops/stage_ntt.py.
+"""The NTT: one launch of H3 up to NTT_MAX points, two of H8 above.  The
+port of stark_anatomy_tpu/ops/ntt.py and ops/stage_ntt.py.
 
 The JAX package keeps two lowerings (a scan over radix-2 stages and a
 staged four-step transform) that are bit-exact with each other
@@ -13,22 +12,21 @@ the rows for a large one), on a CPU tensor its plain version
 (a coset table, for an LDE), post-scale (an inverse coset table, for
 interpolation) and 1/n of the inverse ride in that launch.
 
-Above NTT_MAX (H3 holds a whole transform in shared memory)
-``_four_step`` splits n = n1 * n2, input index j = j1 + n1 j2 and output
-index k = k2 + n2 k1:
+Above NTT_MAX, n = n1 * n2 with n1, n2 <= NTT_MAX (up to 2^24 points,
+``_tiled``), H8 (field/kernels.py:ntt_tiled) runs the four-step transform
+in two launches over the whole batch, input index j = j1 + n1 j2 and
+output index k = k2 + n2 k1: the n1 strided columns' n2-point transforms
+with the pre-scale and the twiddles omega_n^(j1 k2), then the n2 rows'
+n1-point transforms, written in natural order with 1/n and the
+post-scale.  No transpose, no separate scale launch; the twiddles come
+from the n1-point domain table and a table of omega_n's first n2 powers.
 
-1. a transpose to rows j1 of length n2;
-2. n1 transforms of length n2 (H3, or four-step again when the threshold
-   is lowered), with the twiddles omega_n^(j1 k2) as their post-scale;
-3. a transpose to rows k2 of length n1;
-4. n2 transforms of length n1;
-5. a transpose back to natural order.
-
-An inverse is the same with omega^-1, and the inner inverses' 1/n1 and
-1/n2 make 1/n.  The pre- and post-scale are one H0 launch each around
-it.  The twiddle table (8, n) is cached per (n, direction, device): 512
-MiB at n = 2^24.  The transposes are PyTorch copies (a fused multi-pass
-kernel is later work).
+Transforms H8 does not take (above 2^24 points, which no path runs; or,
+where a test lowers NTT_MAX, n2 above it or n1 under TILED_MIN) run
+``_four_step``: a transpose to rows j1 of length n2,
+their transforms (``ntt`` again: H8 or H3) with the twiddles as their
+post-scale, a transpose to rows k2, their transforms, a transpose back;
+the (n1, NLIMBS, n2) twiddle table is cached per (n, direction, device).
 
 ``prefix_zerofier_evals`` evaluates a prefix zerofier on a geometric
 domain by rolls and products (the JAX package's rolling kernel).
@@ -50,8 +48,8 @@ from .domain import DOMAINS, coset_table, mont_const
 # accumulation (stark_anatomy_tpu/ops/ntt.py:HOST_ZEROFIER_MAX)
 HOST_ZEROFIER_MAX = 2048
 
-# transforms above this many points run four-step over H3; the tests lower
-# it to run the four-step path at small sizes
+# transforms above this many points run four-step (H8); the tests lower it
+# to run the four-step path at small sizes
 NTT_MAX = K.NTT_MAX
 
 _TWIDDLES: Dict[tuple, torch.Tensor] = {}
@@ -74,11 +72,36 @@ def ntt(
     if values.device.type != "cpu":
         values = values.to(torch.int32).contiguous()
     if n > NTT_MAX:
+        n1, n2 = K.tiled_split(n)
+        if n1 >= K.TILED_MIN and n2 <= min(NTT_MAX, K.TILED_MAX):
+            return _tiled(values, inverse, scale_pre, scale_post)
         return _four_step(values, inverse, scale_pre, scale_post)
     dom = DOMAINS.get(n, values.device)
     powers = dom["inv_powers"] if inverse else dom["fwd_powers"]
     n_inv = dom["n_inv"] if inverse and n > 1 else None
     return K.ntt(values, powers, n_inv, scale_pre, scale_post)
+
+
+def tiled_tables(n: int, inverse: bool, device):
+    """(n1, step 0's power table, its twiddle tables, step 1's power table,
+    1/n or None) of H8's transform of n points: the n2- and n1-point
+    domain tables, and omega_n^(+-i) for i < n2 beside the n1-point one
+    (omega_n^(j1 k2) = omega_n1^(e / n2) omega_n^(e mod n2))."""
+    n1, n2 = K.tiled_split(n)
+    key = "inv_powers" if inverse else "fwd_powers"
+    outer = DOMAINS.get(n1, device)[key]
+    fine = coset_table(DOMAINS.get(n, device).omega, n2, device, inverse)
+    n_inv = DOMAINS.get(n, device)["n_inv"] if inverse else None
+    return n1, DOMAINS.get(n2, device)[key], (outer, fine), outer, n_inv
+
+
+def _tiled(values, inverse, scale_pre, scale_post) -> torch.Tensor:
+    """The transform of ``ntt`` for n = n1 n2 > NTT_MAX by H8's two steps
+    (module docstring)."""
+    values = values.to(torch.int32).contiguous()        # the plain version takes H8's layout too
+    n1, inner, twiddles, outer, n_inv = tiled_tables(values.shape[-1], inverse, values.device)
+    y = K.ntt_tiled(values, 0, n1, inner, twiddles, scale=scale_pre)
+    return K.ntt_tiled(y, 1, n1, outer, n_inv=n_inv, scale=scale_post)
 
 
 def _twiddles(n: int, n1: int, inverse: bool, device) -> torch.Tensor:

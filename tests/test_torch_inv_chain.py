@@ -50,8 +50,13 @@ def _no_aot(monkeypatch):
 
 
 def source() -> str:
-    with open(FIELD_CU) as f:
-        return f.read()
+    """field.cu and the header that holds its carry-flag products
+    (ntt_passes.cuh, which H8 includes too)."""
+    text = ""
+    for name in ("field.cu", "ntt_passes.cuh"):
+        with open(os.path.join(os.path.dirname(FIELD_CU), name)) as f:
+            text += f.read()
+    return text
 
 
 def arith_source() -> str:

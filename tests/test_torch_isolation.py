@@ -16,7 +16,7 @@ FORBIDDEN = ("jax", "jaxlib", "stark_anatomy_tpu")
 
 
 PORT_TOOLS = ("tools/port_compare.py", "tools/port_interleave.py", "tools/sass_count.py",
-              "tools/port_fri_branch.py", "tools/preprocess_steps.py")
+              "tools/port_fri_branch.py", "tools/preprocess_steps.py", "tools/ntt_tiled_probe.py")
 
 
 def port_sources():

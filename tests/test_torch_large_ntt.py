@@ -1,11 +1,12 @@
 """The port's four-step NTT and rolling zerofier against its single-launch NTT
 and the JAX package's ops/ntt.py.
 
-Above ``ops/ntt.py:NTT_MAX`` points the port runs a four-step transform
-(row transforms of n2 and n1 points, the twiddles, three transposes).
-Here the threshold is lowered to 8, so the same decomposition (recursing
-where a row is still longer than 8) runs on the CPU through the plain
-transform at n = 16 to 4096, and must give the single-launch path's values and
+Above ``ops/ntt.py:NTT_MAX`` points the port runs a four-step transform:
+H8's two launches up to NTT_MAX^2 points, the glue (row transforms of n2
+and n1 points, the twiddles, three transposes) above.  Here the
+threshold is lowered to 8, so both decompositions (the glue recursing
+where a row is still longer than 8) run on the CPU through the plain
+versions at n = 16 to 4096, and must give the single-launch path's values and
 the JAX package's, with pre- and post-scales and batched leading axes.
 ``prefix_zerofier_evals`` must give the JAX function's values.  Field
 arithmetic is exact: equality, no tolerance.
@@ -82,12 +83,12 @@ def test_four_step_matches_jax(monkeypatch, n, lead):
 
 def test_four_step_twiddles_are_cached(monkeypatch):
     four_step(monkeypatch)
-    x = torch.from_numpy(field_limbs((8, 64), 5))
+    x = torch.from_numpy(field_limbs((8, 512), 5))     # 16 x 32: above NTT_MAX^2, the glue
     TN.ntt(x)
     before = dict(TN._TWIDDLES)
     TN.ntt(x)
     assert all(TN._TWIDDLES[k] is v for k, v in before.items())
-    assert (64, 8, False, torch.device("cpu")) in TN._TWIDDLES
+    assert (512, 16, False, torch.device("cpu")) in TN._TWIDDLES
 
 
 # (count, unit) on a domain of D = 256: counts that are not powers of two,

@@ -57,10 +57,24 @@ builds its kernels, and prints one JSON line:
   seconds, and under
   torch.profiler its wall and device busy seconds, the device
   milliseconds and launches of every kernel by name (``by_kernel``: H3
-  ``ntt_kernel``, H4 ``merkle_kernel``, PyTorch's own), and each H1
-  launch's shapes with its device microseconds and byte bound, by shape
-  (``h1_by_shape``: the operands as the wrapper got them, each read
-  once, the output written once, at 3.35 TB/s);
+  ``ntt_kernel``, H4 ``merkle_kernel``, PyTorch's own), and each H0 and
+  H1 launch's shapes with its device microseconds and bound, by shape
+  (``by_shape``: the operands as the wrapper got them, each read once,
+  the output written once, at 3.35 TB/s, or H0's 41 and H1's 16 32-bit
+  operations an element at 67 T/s, the larger);
+* ``large_ntt``: the transforms above H3's 8192 points at the 2^20 path's
+  shapes (the LDE ``coset_evaluate`` of (8, 2^24) coefficients, the trace
+  ``intt`` at (8, 2^22)) and at the sharded path's shard rows (``ntt`` of
+  (8, 2^21), ``intt`` of (8, 2^19), S = 8): ms per call as for
+  ``ops_ms``; one call's device kernels in launch order under
+  torch.profiler (each launch's name and microseconds, median of 3
+  calls) and their sum; the port's launches per call by kernel; the
+  call's transient peak device memory (``max_memory_allocated`` less the
+  memory held before it) and the bytes the tree's ``ops/ntt.py``
+  twiddle cache holds after the calls;
+* in ``mimc_prove`` also the steady prove's PhaseTimer phases and its
+  peak device memory (``max_memory_allocated`` over the prove, after a
+  reset);
 * the card's name and power limit (nvidia-smi).
 
 To compare two commits, unpack the older one into a git-ignored
@@ -82,7 +96,7 @@ import sys
 import time
 
 ALPHA_INV = 180331931428153586757283157844700080811
-WRAPPERS = ("mont_mul", "add_mod", "sub_mod", "mont_pow", "rescue_permutation", "ntt")
+WRAPPERS = ("mont_mul", "add_mod", "sub_mod", "mont_pow", "rescue_permutation", "ntt", "ntt_tiled")
 
 
 def ms_per_call(fn, iters: int, runs: int = 5) -> float:
@@ -260,6 +274,57 @@ def kernel_shapes(dev) -> dict:
     return out
 
 
+def large_ntt(dev) -> dict:
+    """``large_ntt`` of the module docstring."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field.scalar import Field
+    from stark_anatomy_tpu_torch.ops import ntt as NTT
+
+    g = Field.main().generator().value
+    out = {}
+    for label, log_n, call in (("coset_evaluate (8, 2^24)", 24, lambda x: NTT.coset_evaluate(x, g, x.shape[-1])),
+                               ("intt (8, 2^22)", 22, NTT.intt),
+                               ("ntt (8, 2^21) shard row", 21, NTT.ntt),
+                               ("intt (8, 2^19) shard row", 19, NTT.intt)):
+        gen = torch.Generator(device=dev).manual_seed(log_n)
+        x = torch.randint(0, 1 << 16, (8, 1 << log_n), generator=gen, device=dev, dtype=torch.int32)
+        x[7] &= 0x3FFF
+        ms = ms_per_call(lambda: call(x), 5, runs=3)
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call(x)
+                torch.cuda.synchronize()
+            events = sorted((e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+            runs.append([(e.name[:80], e.time_range.elapsed_us()) for e in events])
+        launches = None
+        if runs[0] and all(len(r) == len(runs[0]) for r in runs):
+            launches = [[name, statistics.median(r[k][1] for r in runs)] for k, (name, _) in enumerate(runs[0])]
+        K.reset_launch_counts()
+        call(x)
+        torch.cuda.synchronize()
+        port_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        call(x)
+        torch.cuda.synchronize()
+        out[label] = {"ms": ms, "device_launches": launches,
+                      "device_us": sum(us for _, us in launches) if launches else None,
+                      "port_launches": port_launches,
+                      "transient_peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30}
+        del x
+        torch.cuda.empty_cache()
+    cache = getattr(NTT, "_TWIDDLES", {})
+    out["twiddle_cache_gib"] = sum(t.numel() * t.element_size() for t in cache.values()) / 2**30
+    return out
+
+
 def mimc_prove(dev) -> dict:
     """``mimc_prove`` of the module docstring."""
     import random
@@ -288,9 +353,19 @@ def mimc_prove(dev) -> dict:
     MM.prove_chain(mimc, stark, FieldElement(rng.randrange(field.p), field), tz)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
+    timer = getattr(stark, "timer", None)
+    if timer is not None:
+        timer.totals.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    MM.prove_chain(mimc, stark, FieldElement(rng.randrange(field.p), field), tz)
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    phases = None if timer is None else dict(timer.totals)
     x = FieldElement(rng.randrange(field.p), field)
     calls = []                                   # (wrapper, a's shape, b's shape, out's shape)
-    saved = {name: getattr(K, name) for name in ("add_mod", "sub_mod")}
+    saved = {name: getattr(K, name) for name in ("mont_mul", "add_mod", "sub_mod")}
 
     def recording(name, wrapper):
         @functools.wraps(wrapper)
@@ -325,7 +400,7 @@ def mimc_prove(dev) -> dict:
     events = sorted((e for e in prof.events() if getattr(e, "device_type", None) == DeviceType.CUDA),
                     key=lambda e: e.time_range.start)
     h1 = {}
-    for name, tag in (("add_mod", "AddMod"), ("sub_mod", "SubMod")):
+    for name, tag, ops in (("mont_mul", "MontMul", 41), ("add_mod", "AddMod", 16), ("sub_mod", "SubMod", 16)):
         launches = [e.time_range.elapsed_us() for e in events if tag in e.name]
         made = [c for c in calls if c[0] == name]
         if len(launches) != len(made):
@@ -334,17 +409,19 @@ def mimc_prove(dev) -> dict:
         for (_, sa, sb, so), us in zip(made, launches):
             key = f"{name} {sa} {sb} -> {so}"
             nbytes = 4 * (math.prod(sa) + math.prod(sb) + math.prod(so))
-            row = h1.setdefault(key, {"launches": 0, "device_us": [], "bound_us": nbytes / 3.35e12 * 1e6})
+            bound_us = max(nbytes / 3.35e12, math.prod(so) // 8 * ops / 67e12) * 1e6
+            row = h1.setdefault(key, {"launches": 0, "device_us": [], "bound_us": bound_us})
             row["launches"] += 1
             row["device_us"].append(us)
     for row in h1.values():
         if isinstance(row, dict):
             row["device_us"] = statistics.median(row["device_us"])
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
-    return {"preprocess_s": preprocess_s, "wall_s": wall, "profiled_wall_s": prof_wall,
+    return {"preprocess_s": preprocess_s, "wall_s": wall, "steady_s": steady_s, "phases": phases,
+            "peak_gib": peak_gib, "profiled_wall_s": prof_wall,
             "device_busy_s": busy_us / 1e6 if busy_us else None,
             "by_kernel": {tag: {"launches": c, "device_ms": us / 1e3} for tag, (c, us) in top},
-            "h1_by_shape": h1}
+            "by_shape": h1}
 
 
 def median_s(fn, runs: int = 5) -> float:
@@ -437,6 +514,7 @@ def main() -> int:
     by_caller["verify"] = launches_by_caller(K, pkg, lambda: scheme.verify(pk, doc, sig))
     sign_device_launches, sign_busy_share = device_profile(lambda: scheme.sign(sk, doc))
     shapes = kernel_shapes(dev)
+    large = large_ntt(dev)
     prove = mimc_prove(dev)
 
     smi = subprocess.run(
@@ -451,7 +529,7 @@ def main() -> int:
         "host_tree4096_ms": host_tree4096_ms,
         "sign_kernel_launches": sign_kernel_launches, "launches_by_caller": by_caller,
         "sign_device_launches": sign_device_launches, "sign_busy_share": sign_busy_share,
-        "kernel_shapes": shapes, "mimc_prove": prove,
+        "kernel_shapes": shapes, "large_ntt": large, "mimc_prove": prove,
     }))
     return 0
 
