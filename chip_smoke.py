@@ -8,7 +8,8 @@ Phases (each prints its wall seconds):
 
 0. device and build: the card's name and power limit, then the builds,
    all started together: one ``nvcc`` call per CUDA source
-   (stark_anatomy_tpu_torch/csrc/field.cu and csrc/merkle.cu) and one host
+   (stark_anatomy_tpu_torch/csrc/field.cu, merkle.cu, ntt_tiled.cu and
+   ntt_columns.cu) and one host
    C++ call for N1, the blake2s tree hasher (csrc/blake2s_host.cpp);
 1. kernels against their plain versions: H0 ``mont_mul`` and H1
    ``add_mod``/``sub_mod`` on the card against the plain PyTorch versions
@@ -93,14 +94,18 @@ Phases (each prints its wall seconds):
    B = 2; and ``interpolate_generic`` round trips at n = 16 and 256, with
    K17's steps timed on the card and on the CPU beside their bound;
 7. multi-GPU sharding on the one card (in-process shards, a virtual mesh
-   of cuda:0 repeated): H3 (the distributed NTT's column transforms
-   (w, 8, S) and its row transforms' former four-step inner shapes), H8
+   of cuda:0 repeated): H9 ``ntt_columns`` (the distributed NTT's column
+   step, both directions, with and without the coset pre-scale, on a
+   local mesh's views and on one receive buffer, timed at S = 8 beside
+   the glue it replaced), H3 (the glue's column transforms (w, 8, S)
+   and the row transforms' former four-step inner shapes), H8
    (the row transforms of every shard length B > 8192, forward and
-   inverse, timed at S = 8), H0 (the
+   inverse, timed at S = 8), H0 (the glue's
    cross twiddle (w, 8, S) and a shard's coset scale), H6 (a pair block's
    top round) and H4 (one launch over the S pair blocks) at the sharded
    2^20 path's shapes for S = 2, 4, 8 against their plain versions, and
-   the distributed NTT at 2^24 against the one-device NTT; the topology
+   the distributed NTT and coset evaluation at 2^24 against the
+   one-device ones, each one H9 and two H8 launches a shard; the topology
    test's proof (FRI domain 512) on S = 2, 4, 8 shards, identical to the
    one-device card proof and the CPU's; NCCL at world size 1 (the group,
    the controller, the distributed NTT, a sharded proof); the 2^20 MiMC
@@ -171,6 +176,7 @@ KERNEL_INFO = {
     "fri_fold": ("stark_anatomy_tpu/protocols/fri.py:43", None),
     "fri_fold_batched": ("stark_anatomy_tpu/protocols/fri.py:53", None),
     "ntt_tiled": ("stark_anatomy_tpu/ops/stage_ntt.py:383", None),
+    "ntt_columns": ("stark_anatomy_tpu/parallel/ntt_dist.py:74", None),
 }
 # the profiler's kernel names
 PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
@@ -178,7 +184,7 @@ PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
                 "rescue_perm": "rescue_kernel", "ntt": "ntt_kernel",
                 "merkle": "merkle_kernel", "seed_expand": "seed_expand_kernel",
                 "fri_fold": "fri_fold_kernel", "fri_fold_batched": "fri_fold_batched_kernel",
-                "ntt_tiled": "tiled_"}
+                "ntt_tiled": "tiled_", "ntt_columns": "columns_kernel"}
 TILED_STEPS = ("tiled_columns_kernel", "tiled_rows_kernel")   # H8's two launches
 RESCUE_BATCHES = (1, 7, 4096)
 NTT_SIZES = tuple(1 << k for k in range(14))   # every n H3 takes: its cluster path from 1024 up
@@ -234,9 +240,10 @@ LARGE_PHASES = ("trace_gen", "trace_lde", "boundary_quotients", "commit_bq", "ai
 SHARD_COUNTS = (2, 4, 8)
 SCALING_SHARDS = (1, 2, 4, 8)
 SCALING_REPS = 2
-SHARD_SPOT_ROWS = 256                       # rows of an H3/H0 launch held against the plain version
-SHARDED_KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "ntt", "merkle", "seed_expand",
-                   "fri_fold", "ntt_tiled")   # every kernel the sharded 2^20 prove launches
+SHARD_SPOT_ROWS = 256                       # rows (H9: columns at each end) of a launch held against the plain version
+SHARDED_KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "merkle", "seed_expand",
+                   "fri_fold", "ntt_tiled", "ntt_columns")   # every kernel the sharded 2^20 prove launches
+SHARDED_ONLY = ("ntt_columns",)              # its record is made, and its launches read, on the sharded path
 
 
 def det_urandom(seed: bytes):
@@ -405,6 +412,19 @@ def ntt_ops(batch: int, n: int, scales: int, inverse: bool) -> int:
     for each scale and for 1/n."""
     butterflies = n // 2 * (n.bit_length() - 1) * (MUL_OPS + 2 * ADD_OPS)
     return batch * (butterflies + n * MUL_OPS * (scales + (inverse and n > 1)))
+
+
+def columns_ops(shards: int, scaled: bool, inverse: bool) -> int:
+    """32-bit operations of one H9 thread, a column of S points
+    (csrc/ntt_columns.cu): the pre-scale (S - 1 products by c^(a B), one
+    for c^b), the S-point DFT (S/2 log2(S) butterflies, an add and a
+    subtract each, with 0, 1, 5 products at S = 2, 4, 8), u = r^b, 1/S
+    times c^b, the powers of u and a product an output that is not 1."""
+    dft = {1: 0, 2: 0, 4: 1, 8: 5}[shards]
+    first = scaled or inverse                     # output 0 has a multiplier
+    products = ((shards if scaled else 0) + dft + (scaled and inverse) + (shards > 1)
+                + (shards - 1 if first else max(shards - 2, 0)) + shards - 1 + first)
+    return products * MUL_OPS + shards * (shards.bit_length() - 1) * ADD_OPS
 
 
 def profile_sign(sign) -> None:
@@ -1154,7 +1174,7 @@ def batch_path(dev, smi, records, worst_err, compare, scheme) -> None:
               f"{bound[0]:.9f} ms ({bound[1]}) on {smi}")
 
 
-def sharded_path(dev, smi, compare, steps: int = MIMC_STEPS) -> None:
+def sharded_path(dev, smi, records, worst_err, compare, steps: int = MIMC_STEPS) -> None:
     """Phase 7: the multi-GPU layer on the one card.  H3, H0, H4 and H6 at
     the shapes the sharded 2^20 path gives them against their plain
     versions, and the distributed NTT at 2^24 against the one-device one;
@@ -1183,7 +1203,9 @@ def sharded_path(dev, smi, compare, steps: int = MIMC_STEPS) -> None:
         collective_bytes_model, init_distributed, is_controller, make_mimc_scaling_prover,
         scaling_report, shutdown,
     )
-    from stark_anatomy_tpu_torch.parallel.ntt_dist import cross_twiddles, make_distributed_ntt
+    from stark_anatomy_tpu_torch.ops.domain import coset_table
+    from stark_anatomy_tpu_torch.parallel import ntt_dist as ND
+    from stark_anatomy_tpu_torch.parallel.ntt_dist import column_tables, make_distributed_ntt
     from stark_anatomy_tpu_torch.parallel.sharded_stark import ShardedFastStark
     from stark_anatomy_tpu_torch.protocols.fast_stark import FastStark
 
@@ -1194,16 +1216,70 @@ def sharded_path(dev, smi, compare, steps: int = MIMC_STEPS) -> None:
     def spot(name, label, got, want_fn, rows):
         compare(name, f"{label}, {len(rows)} rows against plain", got[rows], want_fn(rows))
 
-    # H3's column transforms (w, 8, S) and H0's cross twiddle at every
-    # distributed transform of the path (n = M and N, S = 2, 4, 8), and
-    # H3 at the row transforms' inner shapes under the four-step glue
-    # that H8 replaced (n1 rows of n2)
+    # H9 against its plain version at every distributed transform of the
+    # path (n = M and N, S = 2, 4, 8): both directions, with and without
+    # the coset pre-scale, the pieces as a local mesh's views of the S
+    # shards and as slices of one contiguous receive buffer; the last
+    # shard's SHARD_SPOT_ROWS columns at each end (its largest exponents).
+    # At S = 8 (the LDE's forward with the scale, the iNTT's inverse), H9's
+    # time beside the glue it replaced: a shard's H0 coset scale, the
+    # stack and transposes, H3 on rows of S points and H0's cross twiddle
+    # (glue_columns, the route above 8 shards).  Then H3's column
+    # transforms and H0's cross twiddle, the glue's kernels, at the same
+    # shapes against their plain versions, and H3 at the row transforms'
+    # inner shapes under the four-step glue that H8 replaced (n1 rows of n2)
+    coset = Field.main().generator().value    # the LDEs' offset
     inner = set()
     for S in SHARD_COUNTS:
         for n in (M, N):
             B = n // S
-            w = B // S
-            x = random_codeword((w, 8, S), 7000 + S + n.bit_length(), dev)
+            w, s = B // S, S - 1
+            shards = [random_codeword((8, B), 7000 + S + n.bit_length() + 16 * a, dev) for a in range(S)]
+            views = [x[..., s * w:(s + 1) * w] for x in shards]
+            buf = torch.cat([v.reshape(-1) for v in views])
+            layouts = {"views": views, "buffer": [buf[a * 8 * w:(a + 1) * 8 * w].view(8, w) for a in range(S)]}
+            m = min(w, SHARD_SPOT_ROWS)
+            for inverse, offset in itertools.product((False, True), (None, coset)):
+                tabs = column_tables(n, S, inverse, offset, dev)
+                for layout, pieces in layouts.items():
+                    got = K.ntt_columns(pieces, s * w, tabs)
+                    torch.cuda.synchronize()
+                    for t0 in sorted({0, w - m}):
+                        want = K.ntt_columns_plain([p[..., t0:t0 + m] for p in pieces], s * w + t0, tabs)
+                        compare("ntt_columns", f"n = 2^{n.bit_length() - 1}, S = {S}, "
+                                f"{'inverse' if inverse else 'forward'}{', coset pre-scale' if offset else ''}, "
+                                f"{layout}, columns [{t0}, {t0 + m}) of ({S}, 8, {w}) against plain",
+                                got[..., t0:t0 + m].transpose(-3, -2), want.transpose(-3, -2))
+                    del got
+            if S == SHARD_COUNTS[-1]:
+                table = coset_table(coset, n, dev)
+                for inverse, offset in ((False, coset), (True, None)):
+                    tabs = column_tables(n, S, inverse, offset, dev)
+                    label = (f"({S}, 8, {w}) n = 2^{n.bit_length() - 1} {'inverse' if inverse else 'forward'}"
+                             f"{' with the coset pre-scale' if offset else ''}")
+                    h9 = lambda: K.ntt_columns(views, s * w, tabs)
+                    scale = table[:, s * B:(s + 1) * B].contiguous() if offset else None
+
+                    def glue():
+                        if scale is not None:
+                            K.mont_mul(shards[s], scale)     # the shard's scale before the exchange
+                        return ND.glue_columns(views, n, S, s, inverse)
+
+                    ms, us = time_launches(h9, 20), profile_kernel("ntt_columns", h9, 10)
+                    glue_ms = time_launches(glue, 10)
+                    _, _, seen = profile_all(lambda: [glue() for _ in range(5)])
+                    glue_us = {}
+                    for k, (_, kus) in seen.items():
+                        glue_us[k[:60]] = round(glue_us.get(k[:60], 0.0) + kus / 5, 3)
+                    table_bytes = sum(4 * t.numel() for t in tabs if t is not None)
+                    bound = bound_ms(w, 2 * 32 * B + table_bytes, columns_ops(S, offset is not None, inverse))
+                    plain_ms = time_launches(lambda: K.ntt_columns_plain(views, s * w, tabs), 1, warm=0)
+                    print(f"  ntt_columns {label}: {ms:.6f} ms/launch (CUDA events), device {fmt_us(us)}/launch, "
+                          f"bound {bound[0]:.6f} ms ({bound[1]}), plain {plain_ms:.3f} ms; the glue it replaced "
+                          f"{glue_ms:.6f} ms/shard, device us by kernel {glue_us} on {smi}")
+                    if n == N and not inverse:
+                        records["ntt_columns"] = kernel_record("ntt_columns", 0, ms, plain_ms, bound)
+            x = shards[0][..., :w * S].reshape(8, w, S).transpose(0, 1).contiguous()    # (w, 8, S)
             rows = sorted(random.Random(7100 + S).sample(range(w), min(w, SHARD_SPOT_ROWS)))
             dom = DOMAINS.get(S, dev)
             for inverse in (False, True):
@@ -1212,25 +1288,15 @@ def sharded_path(dev, smi, compare, steps: int = MIMC_STEPS) -> None:
                 spot("ntt", f"column transforms ({w}, 8, {S}) {'inverse' if inverse else 'forward'} "
                      f"({K.ntt_plan(w, S.bit_length() - 1, sms)[0]} path)", got,
                      lambda r: K.ntt_plain(x[r], *args), rows)
-            tw = cross_twiddles(n, S, S - 1, False, dev)
+            tw = ND.cross_twiddles(n, S, S - 1, False, dev)
             got = K.mont_mul(x, tw)
             spot("mont_mul", f"cross twiddle ({w}, 8, {S})", got, lambda r: K.mont_mul_plain(x[r], tw[r]), rows)
-            if S == SHARD_COUNTS[-1]:
-                col = lambda: K.ntt(x, dom["fwd_powers"])
-                twiddle = lambda: K.mont_mul(x, tw)
-                col_ms, tw_ms = time_launches(col, 20), time_launches(twiddle, 20)
-                col_us = profile_kernel("ntt", col, 10)
-                tw_us = profile_kernel("mont_mul", twiddle, 10)
-                col_bound = bound_ms(1, 2 * w * S * 32 + S * 16, ntt_ops(w, S, 0, False))
-                tw_bound = bound_ms(w * S, 3 * w * S * 32, MUL_OPS)
-                print(f"  ntt column transforms ({w}, 8, {S}) (n = 2^{n.bit_length() - 1}): {col_ms:.6f} "
-                      f"ms/launch (CUDA events), device {fmt_us(col_us)}/launch, bound {col_bound[0]:.6f} ms "
-                      f"({col_bound[1]}); mont_mul cross twiddle ({w}, 8, {S}): {tw_ms:.6f} ms/launch, device "
-                      f"{fmt_us(tw_us)}/launch, bound {tw_bound[0]:.6f} ms ({tw_bound[1]}) on {smi}")
-            del x, got, tw
+            del x, got, tw, shards, views, buf, layouts
+            ND._TWIDDLES.clear()
             if B > NTT.NTT_MAX:
                 n1 = 1 << ((B.bit_length() - 1) // 2)
                 inner |= {(n1, B // n1, True), (B // n1, n1, False)}
+    torch.cuda.empty_cache()
     for batch, n, scaled in sorted(inner):
         x, post = (random_codeword((batch, 8, n), 7200 + batch + n + k, dev) for k in range(2))
         rows = sorted(random.Random(7300 + n).sample(range(batch), NTT_SPOT_ROWS))
@@ -1291,7 +1357,9 @@ def sharded_path(dev, smi, compare, steps: int = MIMC_STEPS) -> None:
         print(line + f" on {smi}")
         del a, b, u, canon
     # the distributed NTT at N (2^24) on S = 8 shards against the one-device
-    # transform, both directions; each one's time on this card
+    # transform, both directions, and the LDE's coset evaluation; on the
+    # card each is one H9 launch a shard (no H3 column launch, no H0
+    # twiddle or coset-scale launch) and the rows' two H8 launches a shard
     mesh8 = Mesh([[dev] * 8])
     x = random_codeword((8, N), 7500, dev)
     fwd, inv = make_distributed_ntt(N, mesh8), make_distributed_ntt(N, mesh8, inverse=True)
@@ -1300,10 +1368,23 @@ def sharded_path(dev, smi, compare, steps: int = MIMC_STEPS) -> None:
     y = fwd(xs)
     assert torch.equal(y.gather(), want), f"the distributed NTT at {N} differs from the one-device NTT"
     assert torch.equal(inv(y).gather(), x), f"the distributed inverse at {N} did not undo the forward"
-    dist_ms = time_launches(lambda: fwd(xs), 3, warm=1)
-    one_ms = time_launches(lambda: NTT.ntt(x), 3, warm=1)
-    print(f"  distributed NTT n=2^{N.bit_length() - 1} over 8 in-process shards: equals the one-device NTT, inverse round "
-          f"trip exact; {dist_ms:.3f} ms/call against one device's {one_ms:.3f} ms (CUDA events) on {smi}")
+    del want
+    want = NTT.coset_evaluate(x, coset, N)
+    y = fwd(xs, coset)
+    assert torch.equal(y.gather(), want), f"the distributed coset evaluation at {N} differs from one device's"
+    for label, call in (("coset forward", lambda: fwd(xs, coset)), ("inverse", lambda: inv(y))):
+        K.reset_launch_counts()
+        call()
+        torch.cuda.synchronize()
+        made = {k: v for k, v in K.LAUNCHES.items() if v}
+        print(f"  distributed NTT n=2^{N.bit_length() - 1} {label} on 8 shards: launches {made}")
+        rows = {"ntt_tiled": 16} if N // 8 > NTT.NTT_MAX else {"ntt": 8}    # H8's two launches a shard row
+        assert made == {"ntt_columns": 8, **rows}, f"the distributed {label} launched {made}"
+    dist_ms = time_launches(lambda: fwd(xs, coset), 3, warm=1)
+    one_ms = time_launches(lambda: NTT.coset_evaluate(x, coset, N), 3, warm=1)
+    print(f"  distributed NTT n=2^{N.bit_length() - 1} over 8 in-process shards: equals the one-device NTT and "
+          f"coset evaluation, inverse round trip exact; coset evaluation {dist_ms:.3f} ms/call against one "
+          f"device's {one_ms:.3f} ms (CUDA events) on {smi}")
     del x, xs, want, y, fwd, inv
     gc.collect()
     torch.cuda.empty_cache()
@@ -1383,6 +1464,11 @@ def sharded_path(dev, smi, compare, steps: int = MIMC_STEPS) -> None:
     print(f"  launches in the sharded 2^20 path (preprocess, prove; S = 8): {sum(launches.values())} {launches}")
     for name in SHARDED_KERNELS:
         assert launches[name] > 0, f"{name} was not launched on the sharded path"
+    if M // 8 > NTT.NTT_MAX:                  # every shard row is H8's, every column step H9's
+        assert launches["ntt"] == 0, f"H3 ran {launches['ntt']} times on the sharded path"
+    for name in SHARDED_ONLY:
+        records[name]["launches"] = launches[name]
+        records[name]["max_abs_err"] = worst_err[name]
     assert tz8.root == tz1.root, "the sharded zerofier root differs from one device's"
     assert proof8 == proof1 and out8 == out1, "the sharded 2^20 proof differs from the one-device proof"
     assert MM.verify_chain(mimc, single, x, out8, proof8, tz1.root), "the sharded 2^20 proof did not verify"
@@ -1772,9 +1858,9 @@ def main() -> int:
     # phase 5's 2^20 path reads their launches.  H7's record is made in
     # phase 6, which reads the batch's launches.
     for name in K.KERNELS:
-        if name not in LARGE_KERNELS:
+        if name not in LARGE_KERNELS + SHARDED_ONLY:
             assert sign_launches[name] > 0, f"{name} was not launched during sign"
-        if name not in LARGE_KERNELS + BATCH_KERNELS:
+        if name not in LARGE_KERNELS + BATCH_KERNELS + SHARDED_ONLY:
             records[name]["launches"] = path_launches[name]
     print(f"signature: {len(sig)} bytes")
 
@@ -1917,7 +2003,7 @@ def main() -> int:
 
     # -- phase 7: multi-GPU sharding on the one card -------------------------
     t7 = time.perf_counter()
-    sharded_path(dev, smi, compare)
+    sharded_path(dev, smi, records, worst_err, compare)
     assert worst_mismatch == 0, "a kernel disagrees with its plain version"
     phase("7 sharded", t7)
 

@@ -14,15 +14,20 @@ H3 ``ntt`` a whole NTT of up to 8192 points in one launch
 (stark_anatomy_tpu/ops/ntt.py:ntt_core), on one of two paths by the
 batch (``ntt_plan``); H8 ``ntt_tiled`` runs a larger one, up to 2^24
 points, in two launches, a step each (stark_anatomy_tpu/ops/stage_ntt.py:
-staged_ntt, the four-step transform).  H6 ``fri_fold`` runs one round of
+staged_ntt, the four-step transform).  H9 ``ntt_columns`` runs step 1 of
+the distributed NTT on one shard in one launch: the A-point column
+transforms, the cross twiddle and the coset pre-scale
+(stark_anatomy_tpu/parallel/ntt_dist.py:make_distributed_ntt, K18's
+column step, and parallel/sharded_stark.py:_lde's scale).  H6 ``fri_fold`` runs one round of
 the FRI fold (stark_anatomy_tpu/protocols/fri.py:_fold_kernel and
 _square_half) and writes the folded codeword's canonical form beside it;
 H7 ``fri_fold_batched`` does the same for a batch of codewords, one
 challenge per proof (stark_anatomy_tpu/protocols/fri.py:
 _fold_kernel_batched).
-The sources are csrc/field.cu and csrc/ntt_tiled.cu (H8), the word
-arithmetic they share with csrc/merkle.cu, csrc/field_arith.cuh, and
-H3's passes, which H8's blocks run too, csrc/ntt_passes.cuh; the header
+The sources are csrc/field.cu, csrc/ntt_tiled.cu (H8) and
+csrc/ntt_columns.cu (H9), the word arithmetic they share with
+csrc/merkle.cu, csrc/field_arith.cuh, and H3's passes, which H8's blocks
+run too and whose DFTs H9 runs, csrc/ntt_passes.cuh; the header
 of each source says what bounds each kernel and how the design answers
 it.
 
@@ -46,7 +51,7 @@ import math
 import os
 import shutil
 import weakref
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,6 +65,7 @@ SOURCES = {                       # library stem -> CUDA source
     "stark_field": os.path.join(_PKG, "csrc", "field.cu"),
     "stark_merkle": os.path.join(_PKG, "csrc", "merkle.cu"),
     "stark_ntt_tiled": os.path.join(_PKG, "csrc", "ntt_tiled.cu"),
+    "stark_ntt_columns": os.path.join(_PKG, "csrc", "ntt_columns.cu"),
 }
 HEADERS = tuple(os.path.join(_PKG, "csrc", h) for h in ("field_arith.cuh", "ntt_passes.cuh"))
 NVCC_FLAGS = (
@@ -68,9 +74,10 @@ NVCC_FLAGS = (
 )
 BINARY = ("mont_mul", "add_mod", "sub_mod")
 KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "rescue_perm", "ntt", "merkle",
-           "seed_expand", "fri_fold", "fri_fold_batched", "ntt_tiled")
+           "seed_expand", "fri_fold", "fri_fold_batched", "ntt_tiled", "ntt_columns")
 LIBRARY = {name: "stark_merkle" if name in ("merkle", "seed_expand")
-           else "stark_ntt_tiled" if name == "ntt_tiled" else "stark_field" for name in KERNELS}
+           else f"stark_{name}" if name in ("ntt_tiled", "ntt_columns") else "stark_field"
+           for name in KERNELS}
 RESCUE_M = 2            # Rescue-Prime state width
 RESCUE_ROUNDS = 27
 # The Rescue S-box x^(1/3) is x^ALPHA_INV, ALPHA_INV = (2p - 1)/3 =
@@ -120,6 +127,7 @@ NTT_STAGE = 4096        # the n whose persistent path stages each row (one block
 TILED_MIN = 8           # H8's inner transforms: a cluster holds 8 of them (one sector of a limb row) ...
 TILED_MAX = 4096        # ... of at most 4096 points (n/8 threads a block, 16 n bytes)
 TILED_ROWS = 1 << 20    # points of the rows H8's plain version transforms at a time
+COLUMNS_MAX = 8         # H9's column transforms run in registers: A = 1, 2, 4 or 8 points
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 _SMS: Dict[int, int] = {}                 # device index -> its SM count
@@ -178,6 +186,8 @@ _ARGTYPES = {
     + [ctypes.c_void_p, ctypes.c_int],
     "ntt_tiled": [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 3
     + [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 2 + [ctypes.c_int],
+    "ntt_columns": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int64]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_void_p] * 5 + [ctypes.c_int],
 }
 
 
@@ -609,6 +619,116 @@ def ntt_tiled(values: torch.Tensor, step: int, n1: int, powers: torch.Tensor,
     return out
 
 
+class ColumnTables(NamedTuple):
+    """H9's tables, each an (8, m) limb table in Montgomery form: ``powers``
+    the A-point table w_A^(+-i); ``coarse`` and ``fine`` (r^F)^i and r^i,
+    r = w_n^(+-1), F = fine's length, so that r^b = coarse[b / F] fine[b
+    mod F] for every column b of the shard; ``rows``, ``scale_coarse`` and
+    ``scale_fine`` c^(a B) (a < A), (c^F)^i and c^i for a pre-scale by the
+    coset offset c, all three or none; ``n_inv`` None or the (8, 1)
+    constant 1/A (parallel/ntt_dist.py:column_tables builds them)."""
+
+    powers: torch.Tensor
+    coarse: torch.Tensor
+    fine: torch.Tensor
+    rows: Optional[torch.Tensor] = None
+    scale_coarse: Optional[torch.Tensor] = None
+    scale_fine: Optional[torch.Tensor] = None
+    n_inv: Optional[torch.Tensor] = None
+
+
+def _lead_stride(x: torch.Tensor) -> Optional[int]:
+    """The stride of x's leading axes flattened into one (0 for one row), or
+    None where they do not flatten."""
+    dims = [(size, stride) for size, stride in zip(x.shape[:-2], x.stride()[:-2]) if size != 1]
+    for (_, outer), (size, inner) in zip(dims, dims[1:]):
+        if outer != inner * size:
+            return None
+    return dims[-1][1] if dims else 0
+
+
+def columns_layout(pieces: Sequence[torch.Tensor], b0: int,
+                   tables: ColumnTables) -> Tuple[Tuple[int, ...], int, list]:
+    """(lead shape, w, [(row stride, limb stride)] a piece) of a call H9
+    takes: A = 1, 2, 4 or 8 int32 pieces (..., 8, w) of one shape, w a power
+    of two, each piece's elements adjacent and its leading axes flattening
+    to one stride (a slice of a contiguous shard or of a receive buffer);
+    the tables of ``ColumnTables`` at A and the split F, with b0 + w <=
+    (coarse's length) F.  Raises ValueError for any other call."""
+    A = len(pieces)
+    if not 1 <= A <= COLUMNS_MAX or A & (A - 1):
+        raise ValueError(f"ntt_columns: the kernel takes A = 1, 2, 4 or 8 pieces, got {A}")
+    shape = tuple(pieces[0].shape)
+    strides = []
+    for p in pieces:
+        if p.dtype != torch.int32 or tuple(p.shape) != shape or len(shape) < 2 or shape[-2] != NLIMBS:
+            raise ValueError(f"ntt_columns: the pieces must be int32 (..., {NLIMBS}, w) tensors of one "
+                             f"shape; got {tuple(p.shape)} {p.dtype} beside {shape}")
+        sb = _lead_stride(p)
+        if sb is None or (shape[-1] > 1 and p.stride(-1) != 1):
+            raise ValueError(f"ntt_columns: a piece's elements must be adjacent and its leading axes "
+                             f"flatten to one stride; got strides {p.stride()} for {tuple(p.shape)}")
+        strides.append((sb, p.stride(-2)))
+    w = shape[-1]
+    if w < 1 or w & (w - 1):
+        raise ValueError(f"ntt_columns: the pieces' width must be a power of two, got {w}")
+    fine_len = tables.fine.shape[-1] if tables.fine.dim() == 2 else 0
+    coarse_len = tables.coarse.shape[-1] if tables.coarse.dim() == 2 else 0
+    if fine_len < 1 or fine_len & (fine_len - 1):
+        raise ValueError(f"ntt_columns: the fine table's length must be a power of two, got {fine_len}")
+    _check_table("ntt_columns: powers", tables.powers, (NLIMBS, A))
+    _check_table("ntt_columns: coarse", tables.coarse, (NLIMBS, coarse_len))
+    _check_table("ntt_columns: fine", tables.fine, (NLIMBS, fine_len))
+    if b0 < 0 or b0 + w > coarse_len * fine_len:
+        raise ValueError(f"ntt_columns: columns [{b0}, {b0 + w}) lie outside the tables' "
+                         f"{coarse_len} x {fine_len} powers")
+    scale = (tables.rows, tables.scale_coarse, tables.scale_fine)
+    if any(t is None for t in scale) != all(t is None for t in scale):
+        raise ValueError("ntt_columns: the pre-scale takes rows, scale_coarse and scale_fine together")
+    if tables.rows is not None:
+        _check_table("ntt_columns: rows", tables.rows, (NLIMBS, A))
+        _check_table("ntt_columns: scale_coarse", tables.scale_coarse, (NLIMBS, coarse_len))
+        _check_table("ntt_columns: scale_fine", tables.scale_fine, (NLIMBS, fine_len))
+    if tables.n_inv is not None:
+        _check_table("ntt_columns: n_inv", tables.n_inv, (NLIMBS, 1))
+    return shape[:-2], w, strides
+
+
+def ntt_columns(pieces: Sequence[torch.Tensor], b0: int, tables: ColumnTables) -> torch.Tensor:
+    """H9: step 1 of the distributed NTT on one shard (csrc/ntt_columns.cu).
+    ``pieces`` are the A pieces (..., 8, w) the first exchange brought,
+    piece a holding columns b = b0 + t (t < w) of row a; ``tables`` their
+    ``ColumnTables``.  Returns the contiguous (..., 8, A, w)
+        out[..., :, k, t] = n_inv c^b r^(k b) sum_a w_A^(a k) c^(a B) piece_a[..., :, t],
+    b = b0 + t, with c^(...) only where the tables hold a pre-scale and
+    n_inv only where they hold one."""
+    lead, w, strides = columns_layout(pieces, b0, tables)
+    if all(p.device.type == "cpu" for p in pieces):
+        return ntt_columns_plain(pieces, b0, tables)
+    _check_cuda("ntt_columns", *pieces, *(t for t in tables if t is not None))
+    A = len(pieces)
+    out = torch.empty(lead + (NLIMBS, A, w), dtype=torch.int32, device=pieces[0].device)
+    if out.numel() == 0:
+        return out
+    ptrs = (ctypes.c_void_p * A)(*(p.data_ptr() for p in pieces))
+    words = (ctypes.c_int64 * (2 * A))(*(v for pair in strides for v in pair))
+
+    def packed(t):
+        return None if t is None else twiddle_words(t).data_ptr()
+
+    fine_len = tables.fine.shape[-1]
+    err = _entry("ntt_columns")(
+        out.data_ptr(), ctypes.cast(ptrs, ctypes.c_void_p), ctypes.cast(words, ctypes.c_void_p),
+        A.bit_length() - 1, math.prod(lead), w.bit_length() - 1, b0,
+        packed(tables.powers), packed(tables.coarse), packed(tables.fine),
+        fine_len.bit_length() - 1, tables.coarse.shape[-1],
+        packed(tables.rows), packed(tables.scale_coarse), packed(tables.scale_fine),
+        None if tables.n_inv is None else tables.n_inv.data_ptr(), *_stream(pieces[0]),
+    )
+    _finish("ntt_columns", err)
+    return out
+
+
 def mont_words(value: int) -> Tuple[int, int]:
     """(low, high) 64-bit halves of the Montgomery form of a field element."""
     m = value % P * R % P
@@ -887,6 +1007,30 @@ def ntt_tiled_plain(values: torch.Tensor, step: int, n1: int, powers: torch.Tens
     return out.view(lead + (NLIMBS, n))
 
 
+def ntt_columns_plain(pieces: Sequence[torch.Tensor], b0: int, tables: ColumnTables) -> torch.Tensor:
+    """Plain version of H9 (``ntt_columns``): the pieces stacked, the
+    pre-scale c^(a B) c^b, ``ntt_plain`` over the A points with 1/A, and
+    the twiddle r^(k b) as the powers of r^b = coarse[b / F] fine[b mod F]."""
+    _, w, _ = columns_layout(pieces, b0, tables)
+    A, dev = len(pieces), pieces[0].device
+    b = b0 + torch.arange(w, device=dev)
+
+    def power(coarse, fine):                                   # base^b, (8, w)
+        f = fine.shape[-1]
+        return mont_mul_plain(coarse[:, b >> (f.bit_length() - 1)], fine[:, b & (f - 1)])
+
+    x = torch.stack(list(pieces), dim=-3)                      # (..., A, 8, w)
+    if tables.rows is not None:
+        x = mont_mul_plain(x, tables.rows.transpose(0, 1).unsqueeze(-1))          # c^(a B)
+        x = mont_mul_plain(x, power(tables.scale_coarse, tables.scale_fine))      # c^b
+    y = ntt_plain(x.transpose(-3, -1), tables.powers, tables.n_inv).transpose(-3, -1)
+    u = power(tables.coarse, tables.fine)
+    tw = [_limb_col(R, dev).to(torch.int32).expand(NLIMBS, w)]
+    for _ in range(1, A):
+        tw.append(u if len(tw) == 1 else mont_mul_plain(tw[-1], u))
+    return mont_mul_plain(y, torch.stack(tw)).transpose(-3, -2).contiguous()
+
+
 def _fold_plain(codeword: torch.Tensor, u: torch.Tensor, alpha_m: torch.Tensor):
     """The fold of H6 and H7 over the plain field functions, in the JAX
     package's order (_fold_kernel, _fold_kernel_batched), the canonical
@@ -919,5 +1063,5 @@ PLAIN = {
     "add_mod": add_mod_plain, "sub_mod": sub_mod_plain,
     "rescue_perm": rescue_permutation_plain, "ntt": ntt_plain,
     "fri_fold": fri_fold_plain, "fri_fold_batched": fri_fold_batched_plain,
-    "ntt_tiled": ntt_tiled_plain,
+    "ntt_tiled": ntt_tiled_plain, "ntt_columns": ntt_columns_plain,
 }

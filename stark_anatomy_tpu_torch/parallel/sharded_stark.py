@@ -11,9 +11,10 @@ class overrides them:
   ``_roll_left`` (the AIR's next row, the interpolation's rotation)
   fetches a halo of the next shard;
 * ``_intt`` and ``_lde`` run the distributed four-step NTT
-  (parallel/ntt_dist.py) where S >= 2 and S^2 divides the length, the
-  JAX package's rule, else the one-device transform on the gathered
-  codeword; ``routes`` counts which ran;
+  (parallel/ntt_dist.py; the LDE's coset scale rides its step 1) where
+  S >= 2 and S^2 divides the length, the JAX package's rule, else the
+  one-device transform on the gathered codeword; ``routes`` counts which
+  ran, and step 1's route (H9, or glue above 8 shards);
 * ``_commit_rows`` commits a forest (commit/device_merkle.py:
   commit_forest): the codeword's pair blocks Q_k = (c[k h : (k + 1) h],
   c[n/2 + k h : n/2 + (k + 1) h]), h = n / 2S, come together by one
@@ -45,7 +46,7 @@ from ..field import kernels as K
 from ..field import ops as F
 from ..field.scalar import P
 from ..ops import ntt as NTT
-from ..ops.domain import DOMAINS, coset_table, mont_const, power_table
+from ..ops.domain import DOMAINS, mont_const, power_table
 from ..protocols.fast_stark import FastStark, TransitionZerofier
 from ..transcript.proof_stream import ProofStream
 from ..utils.convert import ints_from_device
@@ -107,7 +108,6 @@ class ShardedFastStark(FastStark):
         self.axis = axis
         self._tables_placed = False
         self._ntt_cache = {}
-        self._placed = {}           # id(whole table) -> (table, its shards)
         self._fri_u0 = None
         # which route each step took: the distributed NTT or the gathered
         # one-device transform, the device or host forest, sharded folds
@@ -127,13 +127,6 @@ class ShardedFastStark(FastStark):
         """``arr`` sharded over its last (codeword) axis."""
         return Sharded.place(self.mesh, arr)
 
-    def _shard_table(self, tab: torch.Tensor) -> Sharded:
-        """A whole cached table's shards, placed once."""
-        hit = self._placed.get(id(tab))
-        if hit is None or hit[0] is not tab:
-            hit = self._placed[id(tab)] = (tab, self._shard_last(tab))
-        return hit[1]
-
     def _dist_ntt(self, n: int, inverse: bool):
         """The cached distributed (i)NTT of length n, or None where the
         routing rule does not hold."""
@@ -150,8 +143,10 @@ class ShardedFastStark(FastStark):
 
     def _lde(self, coeffs, offset: int, order: int) -> Sharded:
         """Sharded coset evaluation: the coefficients zero-padded to
-        ``order`` and sharded (a reshard if they come sharded), the coset
-        scale shard by shard, the distributed NTT."""
+        ``order`` and sharded (a reshard if they come sharded), then the
+        distributed NTT with the coset pre-scale (on the card one H9 launch
+        a shard runs the scale with the column step): the JAX ``_lde``'s
+        scale, then transform."""
         if isinstance(coeffs, Sharded):
             padded = coeffs.resize(order)
         else:
@@ -160,17 +155,21 @@ class ShardedFastStark(FastStark):
         if dist is None:
             self.routes["ntt_gathered"] += 1
             return self._shard_last(NTT.coset_evaluate(padded.gather(), offset, order))
-        self.routes["ntt_dist"] += 1
-        scale = self._shard_table(coset_table(offset, order, self.device))
-        return dist(pointwise(F.mont_mul, padded, scale))
+        self._count_dist(dist)
+        return dist(padded, offset)
 
     def _intt(self, values: Sharded) -> Sharded:
         dist = self._dist_ntt(values.length, inverse=True)
         if dist is None:
             self.routes["ntt_gathered"] += 1
             return self._shard_last(NTT.intt(values.gather()))
-        self.routes["ntt_dist"] += 1
+        self._count_dist(dist)
         return dist(values)
+
+    def _count_dist(self, dist) -> None:
+        """Count a distributed transform and its step 1's route."""
+        self.routes["ntt_dist"] += 1
+        self.routes["columns_" + dist.columns] += 1
 
     def _pointwise(self, fn, *args):
         if not any(isinstance(a, Sharded) for a in args):

@@ -49,6 +49,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import stark_anatomy_tpu_torch.ops\n"
         "import stark_anatomy_tpu_torch.protocols.stark\n"
         "import stark_anatomy_tpu_torch.parallel.mesh\n"
+        "import stark_anatomy_tpu_torch.field.kernels\n"
         "import stark_anatomy_tpu_torch.parallel.ntt_dist\n"
         "import stark_anatomy_tpu_torch.parallel.sharded_stark\n"
         "import stark_anatomy_tpu_torch.parallel.multihost\n"

@@ -75,7 +75,25 @@ builds its kernels, and prints one JSON line:
 * in ``mimc_prove`` also the steady prove's PhaseTimer phases and its
   peak device memory (``max_memory_allocated`` over the prove, after a
   reset);
+* ``dist_ntt``: the distributed NTT on 8 in-process shards of the card
+  (parallel/ntt_dist.py), the 2^24 coset evaluation (the LDE: the
+  offset passed to the transform where the tree takes one, else the H0
+  coset scale a shard before it, as the tree's ``_lde`` runs it) and the
+  2^22 inverse (the trace iNTT), (8, n) codewords: ms per call as for
+  ``ops_ms``, one call's device microseconds by kernel (median of 3
+  calls under torch.profiler) and their sum, the port's launches per
+  call, the call's transient peak device memory, and the device memory
+  the calls left held (cached tables);
+* ``sharded_prove``: the 2^20 MiMC chain on 8 in-process shards
+  (``ShardedFastStark``, production parameters): preprocess and a first
+  prove (wall seconds, the port's launches, peak device memory), then a
+  steady prove's wall seconds and, under torch.profiler, its device busy
+  milliseconds and the device milliseconds and launches of its top
+  kernels;
 * the card's name and power limit (nvidia-smi).
+
+``--part sharded`` prints only ``dist_ntt`` and ``sharded_prove`` (with
+the root and the card).
 
 To compare two commits, unpack the older one into a git-ignored
 directory (``git archive``) and run, in one command on one card:
@@ -424,6 +442,145 @@ def mimc_prove(dev) -> dict:
             "by_shape": h1}
 
 
+def profiled_kernels(fn, calls: int = 3) -> dict:
+    """{kernel name: [launches, device us]} of one call of ``fn``, the
+    medians over ``calls`` profiled calls (torch.profiler's kernel
+    events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        per = collections.defaultdict(lambda: [0, 0.0])
+        for e in prof.events():
+            if getattr(e, "device_type", None) == DeviceType.CUDA:
+                per[e.name[:80]][0] += 1
+                per[e.name[:80]][1] += e.time_range.elapsed_us()
+        runs.append(per)
+    names = set().union(*runs)
+    return {k: [statistics.median(r[k][0] if k in r else 0 for r in runs),
+                statistics.median(r[k][1] if k in r else 0.0 for r in runs)] for k in sorted(names)}
+
+
+def dist_ntt(dev) -> dict:
+    """``dist_ntt`` of the module docstring."""
+    import inspect
+
+    import torch
+
+    from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field import ops as F
+    from stark_anatomy_tpu_torch.field.scalar import Field
+    from stark_anatomy_tpu_torch.ops.domain import coset_table
+    from stark_anatomy_tpu_torch.parallel.mesh import Mesh, Sharded, pointwise
+    from stark_anatomy_tpu_torch.parallel.ntt_dist import make_distributed_ntt
+
+    g = Field.main().generator().value
+    mesh = Mesh([[dev] * 8])
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated()
+    out = {}
+    for label, log_n, inverse in (("coset_evaluate (8, 2^24), 8 shards", 24, False),
+                                  ("intt (8, 2^22), 8 shards", 22, True)):
+        n = 1 << log_n
+        fn = make_distributed_ntt(n, mesh, inverse=inverse)
+        fused = "offset" in inspect.signature(fn).parameters
+        gen = torch.Generator(device=dev).manual_seed(log_n)
+        x = torch.randint(0, 1 << 16, (8, n), generator=gen, device=dev, dtype=torch.int32)
+        x[7] &= 0x3FFF
+        xs = Sharded.place(mesh, x)
+        del x
+        if inverse:
+            call = lambda: fn(xs)
+        elif fused:
+            call = lambda: fn(xs, g)
+        else:
+            scale = Sharded.place(mesh, coset_table(g, n, dev))
+            call = lambda: fn(pointwise(F.mont_mul, xs, scale))
+        ms = ms_per_call(call, 3, runs=3)
+        kernels = profiled_kernels(call)
+        K.reset_launch_counts()
+        call()
+        torch.cuda.synchronize()
+        port_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        call()
+        torch.cuda.synchronize()
+        out[label] = {"ms": ms, "fused_scale": fused and not inverse,
+                      "device_us": sum(us for _, us in kernels.values()), "by_kernel": kernels,
+                      "port_launches": port_launches,
+                      "transient_peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30}
+        del xs, call
+        scale = None
+        torch.cuda.empty_cache()
+    out["held_after_gib"] = (torch.cuda.memory_allocated() - held0) / 2**30
+    return out
+
+
+def sharded_prove(dev) -> dict:
+    """``sharded_prove`` of the module docstring."""
+    import random
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field.scalar import Field, FieldElement
+    from stark_anatomy_tpu_torch.models import mimc as MM
+    from stark_anatomy_tpu_torch.parallel.mesh import Mesh
+    from stark_anatomy_tpu_torch.parallel.sharded_stark import ShardedFastStark
+
+    steps = 1 << 20
+    field = Field.main()
+    rng = random.Random(2021)
+    mimc, _ = MM.make_stark(steps, device=dev)
+    stark = ShardedFastStark(field, 4, 64, 128, 1, steps + 1, transition_constraints_degree=3,
+                             mesh=Mesh([[dev] * 8]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    tz = stark.preprocess()
+    MM.prove_chain(mimc, stark, FieldElement(rng.randrange(field.p), field), tz)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    first = {"seconds": first_s, "port_launches": sum(K.LAUNCHES.values()),
+             "by_kernel": {k: v for k, v in K.LAUNCHES.items() if v},
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "routes": dict(stark.routes)}
+    steady = []
+    for _ in range(2):
+        t = time.perf_counter()
+        MM.prove_chain(mimc, stark, FieldElement(rng.randrange(field.p), field), tz)
+        torch.cuda.synchronize()
+        steady.append(time.perf_counter() - t)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        MM.prove_chain(mimc, stark, FieldElement(rng.randrange(field.p), field), tz)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t
+    busy_us, by_kernel = 0.0, {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        busy_us += us
+        if us > 0:
+            acc = by_kernel.setdefault(e.key[:80], [0, 0.0])
+            acc[0] += e.count
+            acc[1] += us
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:14]
+    return {"first": first, "steady_s": steady, "profiled_wall_s": prof_wall,
+            "device_busy_ms": busy_us / 1e3 if busy_us else None,
+            "by_kernel": {k: {"launches": c, "device_ms": us / 1e3} for k, (c, us) in top}}
+
+
 def median_s(fn, runs: int = 5) -> float:
     import torch
 
@@ -439,6 +596,7 @@ def median_s(fn, runs: int = 5) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    parser.add_argument("--part", choices=("all", "sharded"), default="all")
     args = parser.parse_args()
 
     import torch
@@ -461,6 +619,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     K.load()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=10, check=True,
+    ).stdout.strip().splitlines()[0]
+    if args.part == "sharded":
+        print(json.dumps({"root": root, "card": smi, "dist_ntt": dist_ntt(dev),
+                          "sharded_prove": sharded_prove(dev)}))
+        return 0
 
     gen = torch.Generator().manual_seed(0)
     ops_ms, pow_device_us = {}, None
@@ -516,11 +682,8 @@ def main() -> int:
     shapes = kernel_shapes(dev)
     large = large_ntt(dev)
     prove = mimc_prove(dev)
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=10, check=True,
-    ).stdout.strip().splitlines()[0]
+    dist = dist_ntt(dev)
+    sharded = sharded_prove(dev)
     print(json.dumps({
         "root": root, "card": smi, "ops_ms": ops_ms, "pow_device_us": pow_device_us,
         "trace_s": trace_s, "trace_device_us": trace_device_us,
@@ -530,6 +693,7 @@ def main() -> int:
         "sign_kernel_launches": sign_kernel_launches, "launches_by_caller": by_caller,
         "sign_device_launches": sign_device_launches, "sign_busy_share": sign_busy_share,
         "kernel_shapes": shapes, "large_ntt": large, "mimc_prove": prove,
+        "dist_ntt": dist, "sharded_prove": sharded,
     }))
     return 0
 
