@@ -8,8 +8,8 @@ Phases (each prints its wall seconds):
 
 0. device and build: the card's name and power limit, then the builds,
    all started together: one ``nvcc`` call per CUDA source
-   (stark_anatomy_tpu_torch/csrc/field.cu, merkle.cu, ntt_tiled.cu and
-   ntt_columns.cu) and one host
+   (stark_anatomy_tpu_torch/csrc/field.cu, merkle.cu, ntt_tiled.cu,
+   ntt_columns.cu and air.cu) and one host
    C++ call for N1, the blake2s tree hasher (csrc/blake2s_host.cpp);
 1. kernels against their plain versions: H0 ``mont_mul`` and H1
    ``add_mod``/``sub_mod`` on the card against the plain PyTorch versions
@@ -35,10 +35,16 @@ Phases (each prints its wall seconds):
    time per commit (one launch a commit), and N1's and hashlib's per tree;
 2. main path: ``FastRPSSS()`` keygen, sign and verify on the card at the
    production parameters; verify must accept, and reject a forged
-   document and another key's pk; every kernel must be launched in that
-   sign (H7, the batched FRI fold, is launched there too: a sign is a
-   batch of one); then one warm-up and three timed signs and verifies,
-   and the kernel launches of one warm sign and of one verify; the
+   document and another key's pk; H10 ``rescue_quotients`` and H11
+   ``combination`` at the inputs a sign gives them, H12 ``verify_core`` at
+   a verify's (captured from the wrappers' calls), each against its plain
+   version on the card, with the special values in front too (a zero
+   transition-zerofier value for H12), and H10 with the next rows as
+   their own operand; their times beside the bound; every kernel of the
+   path must be launched in that sign (H7, the batched FRI fold, too: a
+   sign is a batch of one), H12 in the verify; then one warm-up and three
+   timed signs and verifies, and the kernel launches of one warm sign (at
+   most 15) and of one verify (at most 3); the
    Rescue trace alone, which must be one ``rescue_perm`` launch and no
    H0/H1 launch; the prover's phase seconds (PhaseTimer) of the timed
    signs; a device profile of one sign (torch.profiler) and a host one
@@ -80,6 +86,9 @@ Phases (each prints its wall seconds):
    output rejected, the proof's bytes, peak device memory, the launches
    of one steady prove, its device busy share (torch.profiler), and the
    pipelined prover over four statements against four serial proves;
+   before the proofs, H11 at that prove's combination (8, 2^24), C = R =
+   1, against its plain version on the first and last 2^16 columns, with
+   the special values too, and its time beside the bound;
 6. batch signing: H7 ``fri_fold_batched`` against its plain version on
    the card at (64, 8, 4096) and (64, 8, 512) with 0, 1 and p - 1 among
    the inputs and a distinct challenge per proof, with its times and
@@ -88,7 +97,10 @@ Phases (each prints its wall seconds):
    the five phases, the launches by kernel), every signature verified by
    ``FastRPSSS``, a forged document and another key's pk rejected, the
    device busy share of a batch (torch.profiler) and its host profile
-   (cProfile); then the card against the CPU byte for byte: a seeded
+   (cProfile); H10 and H11 at the batch's inputs (per-proof tables and
+   weights) against their plain versions, with the special values too,
+   and their times beside the bound; then the card against the CPU byte
+   for byte: a seeded
    batch of 3 at the tests' small parameters, a seeded slow ``Stark`` proof at
    tests/test_stark.py's parameters, and ``entry()``'s core outputs at
    B = 2; and ``interpolate_generic`` round trips at n = 16 and 256, with
@@ -148,9 +160,11 @@ SHAPES = [(1, 2, 8, 4096), (8, 1024), (8, 1000)]
 MAIN_SHAPE = (1, 2, 8, 4096)
 RESCUE_SHAPE = (2, 8, 1)                 # the Rescue state (H2 runs its own x^(1/3) chain)
 LADDER_SHAPES = [RESCUE_SHAPE, (8, 4096), MAIN_SHAPE]
-INV_SHAPES = [(8, 1), (3, 8, 1), (8, 128)]   # x^(p-2): batch_inv's roots, the verifier's (8, 128)
-INV_MAIN = (8, 1)                        # the ladder's launch on the paths: one a verify, one a 2^20 prove
-SHIFT_EXPONENTS = (201, 741)             # the verifier's x^e at (8, 128) (protocols/fast_stark.py:_verify_core)
+INV_SHAPES = [(8, 1), (3, 8, 1), (8, 128)]   # x^(p-2): batch_inv's roots, the glue verifier's (8, 128)
+# the ladder's launch on the paths: one a 2^20 prove and one its verify
+# (the glue verifier of MiMC's AIR; a Rescue verify runs H12's chain)
+INV_MAIN = (8, 1)
+SHIFT_EXPONENTS = (201, 741)             # the glue verifier's x^e at (8, 128) (protocols/fast_stark.py:_verify_core)
 SHIFT_SHAPE = (8, 128)
 ALPHA_INV = 180331931428153586757283157844700080811
 DOC = b"chip smoke: FastRPSSS on the card"
@@ -177,6 +191,9 @@ KERNEL_INFO = {
     "fri_fold_batched": ("stark_anatomy_tpu/protocols/fri.py:53", None),
     "ntt_tiled": ("stark_anatomy_tpu/ops/stage_ntt.py:383", None),
     "ntt_columns": ("stark_anatomy_tpu/parallel/ntt_dist.py:74", None),
+    "rescue_quotients": ("stark_anatomy_tpu/protocols/fast_stark.py:1033", None),
+    "combination": ("stark_anatomy_tpu/protocols/fast_stark.py:1087", None),
+    "verify_core": ("stark_anatomy_tpu/protocols/fast_stark.py:958", None),
 }
 # the profiler's kernel names
 PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
@@ -184,7 +201,9 @@ PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
                 "rescue_perm": "rescue_kernel", "ntt": "ntt_kernel",
                 "merkle": "merkle_kernel", "seed_expand": "seed_expand_kernel",
                 "fri_fold": "fri_fold_kernel", "fri_fold_batched": "fri_fold_batched_kernel",
-                "ntt_tiled": "tiled_", "ntt_columns": "columns_kernel"}
+                "ntt_tiled": "tiled_", "ntt_columns": "columns_kernel",
+                "rescue_quotients": "quotients_kernel", "combination": "combination_kernel",
+                "verify_core": "verify_kernel"}
 TILED_STEPS = ("tiled_columns_kernel", "tiled_rows_kernel")   # H8's two launches
 RESCUE_BATCHES = (1, 7, 4096)
 NTT_SIZES = tuple(1 << k for k in range(14))   # every n H3 takes: its cluster path from 1024 up
@@ -197,7 +216,9 @@ PHASES = ("pipeline", "commit", "combination", "fri", "openings")
 # the large-trace path: bench.py:229-289 (seg_mimc) proves a MiMC chain of
 # 2^20 steps; its omicron domain is 2^22 and its FRI domain 2^24
 MIMC_STEPS = 1 << 20
-LARGE_KERNELS = ("merkle", "seed_expand", "fri_fold", "ntt_tiled")   # launched on that path, not in a sign
+# launched on that path, not in a sign (H1's subtract: the MiMC AIR's glue
+# and its boundary quotients; a sign's quotients are H10's)
+LARGE_KERNELS = ("merkle", "seed_expand", "fri_fold", "ntt_tiled", "sub_mod")
 EXPAND_DEEP = (1 << 16) + 1                 # every seed has counters that need five rounds or more here
 EXPAND_MAIN = 1 << 22                       # the 2^20 path's randomizer coefficients: H5's record
 # of H5's 10 x 8 G steps, 7 of round 0's are the same for every counter
@@ -242,8 +263,90 @@ SCALING_SHARDS = (1, 2, 4, 8)
 SCALING_REPS = 2
 SHARD_SPOT_ROWS = 256                       # rows (H9: columns at each end) of a launch held against the plain version
 SHARDED_KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "merkle", "seed_expand",
-                   "fri_fold", "ntt_tiled", "ntt_columns")   # every kernel the sharded 2^20 prove launches
+                   "fri_fold", "ntt_tiled", "ntt_columns", "combination")   # every kernel the sharded 2^20 prove launches
 SHARDED_ONLY = ("ntt_columns",)              # its record is made, and its launches read, on the sharded path
+# the AIR kernels (csrc/air.cu): H10 and H11 launch once in a sign, H12 once
+# in a verify, and nothing else of a verify but the result's conversion
+VERIFY_KERNELS = ("verify_core",)
+SIGN_MAX_LAUNCHES = 15
+VERIFY_MAX_LAUNCHES = 3
+# H10 a point: 20 products (two of them squarings) and 12 adds or
+# subtracts; H11 a point and pair: 2 products and 2 adds, and the first
+# term's product
+QUOTIENT_OPS = 20 * MUL_OPS + 12 * ADD_OPS
+AIR_SPOT = 1 << 16                           # columns of each end of a 2^24 call held against the plain version
+
+
+def clone_args(x):
+    """A copy of a wrapper's argument: tensors cloned (their strides
+    kept), tuples element by element, anything else as it is."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(clone_args(v) for v in x)
+    return x
+
+
+def capture_calls(K, names, fn) -> dict:
+    """{name: (args, kwargs)} of the first call of each wrapper of ``K``
+    in ``names`` during ``fn()``, the tensors copied: the inputs a path
+    gives its kernels, to replay against the plain versions."""
+    seen = {}
+    saved = {name: getattr(K, name) for name in names}
+
+    def wrap(name, wrapper):
+        def wrapped(*args, **kwargs):
+            if name not in seen:
+                seen[name] = (clone_args(args), {k: clone_args(v) for k, v in kwargs.items()})
+            return wrapper(*args, **kwargs)
+        return wrapped
+
+    for name, wrapper in saved.items():
+        setattr(K, name, wrap(name, wrapper))
+    try:
+        fn()
+    finally:
+        for name, wrapper in saved.items():
+            setattr(K, name, wrapper)
+    return seen
+
+
+def with_specials(x, special):
+    """A copy of the limb tensor x (..., 8, n) whose first elements of each
+    row are the (8, k) Montgomery limbs ``special``."""
+    y = x.clone()
+    k = min(special.shape[-1], y.shape[-1])
+    y[..., :, :k] = special[:, :k]
+    return y
+
+
+def quotient_rows(batch: int, per_proof: bool) -> int:
+    """32-byte limb rows an H10 point moves: a proof's trace (its next
+    cycle is the same rows), interp and inv_bz (per proof or shared) and
+    bq and tq written, 2 each; c1, c2 (2 each) and inv_tz once."""
+    return batch * (6 + (4 if per_proof else 0)) + (0 if per_proof else 4) + 5
+
+
+def combination_rows(batch: int, c: int, r: int) -> int:
+    """32-byte limb rows an H11 point moves: a proof's rand, C + R
+    quotients and its output; the C + R shift codewords once."""
+    return batch * (2 + c + r) + c + r
+
+
+def verify_work(K, K_: int, dz: int, di: int, shifts) -> tuple:
+    """(32-bit operations, products one thread runs) of H12 at K_ points
+    (csrc/air.cu:verify_kernel).  A point's thread runs its products in
+    turn: 4 Horner evaluations (2 registers at x and at the next point, dz
+    + di steps, a product and an add each) and a product and an add for
+    each of the 4 trace values, the AIR (16 products, 10 adds), the inverse
+    chain, 2 quotients, each shift's square and multiply, and the weighted
+    sum (9 products by a weight, 4 by x^e, 8 adds)."""
+    products = (4 * (dz + di) + 4 + 16 + len(K.INV_CHAIN) + 2
+                + sum(pow_links(K, e) for e in shifts) + 13)
+    adds = 4 * (dz + di) + 4 + 10 + 8
+    return K_ * (products * MUL_OPS + adds * ADD_OPS), products
 
 
 def det_urandom(seed: bytes):
@@ -626,6 +729,119 @@ def profile_steps(fn, iters: int) -> list:
     return out
 
 
+def air_bound(name: str, args) -> tuple:
+    """(bound, what it counts) of one call of an AIR kernel on ``args``
+    (the wrapper's positional arguments), from the shapes: H10's and
+    H11's rows (quotient_rows, combination_rows) and operations a point;
+    H12's bytes and verify_work's operations."""
+    if name == "rescue_quotients":
+        trace, interp = args[0], args[1]
+        n = trace.shape[-1]
+        batch = trace.numel() // (16 * n)
+        rows = quotient_rows(batch, interp.dim() == 4)
+        return bound_ms(1, rows * n * 32, batch * n * QUOTIENT_OPS), f"{rows} rows of {n}"
+    if name == "combination":
+        rand, tq, bq, weights = args[0], args[1], args[2], args[5]
+        n = rand.shape[-1]
+        batch, c, r = rand.numel() // (8 * n), tq.shape[-3], bq.shape[-3]
+        rows = combination_rows(batch, c, r)
+        ops = batch * n * ((1 + 2 * (c + r)) * MUL_OPS + 2 * (c + r) * ADD_OPS)
+        return bound_ms(1, rows * n * 32 + weights.numel() * 4, ops), f"{rows} rows of {n}"
+    from stark_anatomy_tpu_torch.field import kernels as K
+
+    vals, bz, ip, weights, idx, tables, tq_sh, bq_sh = args
+    k = idx.shape[0]
+    ops, products = verify_work(K, k, bz.shape[-1], ip.shape[-1], tuple(tq_sh) + tuple(bq_sh))
+    nbytes = 4 * (vals.numel() + bz.numel() + ip.numel() + weights.numel()) + 8 * k + 4 * 32 * k + 32 * k
+    return bound_ms(1, nbytes, ops), f"K = {k}, {products} products a thread in turn"
+
+
+def air_edges(name: str, args, special):
+    """The call ``args`` with the special values (the (8, 5) limbs of 0, 1,
+    p - 1, p - 2, R mod p) in front of every operand row, in rotated orders
+    so that each meets the others (a zero minuend and subtrahend, p - 1
+    against 1); H11's first five weights, H12's first five points and
+    values of each part (a zero transition-zerofier value among them: its
+    inverse is taken as 0)."""
+    import torch
+
+    def rot(k):
+        return torch.roll(special, k, dims=-1)
+
+    if name == "rescue_quotients":
+        trace, interp, inv_bz, inv_tz, tables, *rest = args
+        c1, c2, mds, mds_inv = tables
+        rest = list(rest)
+        if len(rest) > 1 and rest[1] is not None:
+            rest[1] = with_specials(rest[1], rot(3))
+        return (with_specials(trace, rot(0)), with_specials(interp, rot(1)), with_specials(inv_bz, rot(2)),
+                with_specials(inv_tz, rot(3)), (with_specials(c1, rot(4)), with_specials(c2, rot(1)), mds, mds_inv),
+                *rest)
+    if name == "combination":
+        weights = args[5].clone()
+        k = min(5, weights.shape[-3])
+        weights[..., :k, :, 0] = special[:, :k].t()
+        return tuple(with_specials(x, rot(i)) for i, x in enumerate(args[:5])) + (weights,)
+    vals, *rest = args
+    k = rest[3].shape[0]
+    vals = vals.clone()
+    for part in range(vals.shape[-1] // k):
+        vals[:, part * k:part * k + min(5, k)] = rot(part)[:, :min(5, k)]
+    return (vals, *rest)
+
+
+def check_air(name, label, args, kwargs, compare) -> None:
+    """An AIR kernel on ``args`` against its plain version on the same
+    inputs, on the card; each output compared."""
+    import torch
+
+    from stark_anatomy_tpu_torch.field import kernels as K
+
+    got = getattr(K, name)(*args, **kwargs)
+    torch.cuda.synchronize()
+    want = K.PLAIN[name](*args, **kwargs)
+    if isinstance(got, tuple):
+        for part, g, w in zip(("bq", "tq"), got, want):
+            compare(name, f"{label} {part}", g, w)
+    else:
+        compare(name, label, got, want)
+
+
+def air_path(dev, smi, records, worst_err, compare, scheme, sk, pk, sig) -> None:
+    """Phase 2's AIR kernels at the main path's inputs: H10 and H11 as one
+    sign gives them, H12 as one verify does (captured from the wrappers'
+    calls), each against its plain version on the card, then with the
+    special values in front; H10 also with the next rows as their own
+    operand (the sharded prover's form); each timed beside its bound,
+    which gives its record."""
+    import torch
+
+    from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field.limbs import R
+    from stark_anatomy_tpu_torch.field.scalar import P
+    from stark_anatomy_tpu_torch.utils.convert import device_from_ints
+
+    calls = capture_calls(K, K.AIR_KERNELS, lambda: (scheme.sign(sk, DOC), scheme.verify(pk, DOC, sig)))
+    special = device_from_ints([0, 1, P - 1, P - 2, R % P], dev)
+    for name in K.AIR_KERNELS:
+        args, kwargs = calls[name]
+        shape = tuple(args[0].shape)
+        check_air(name, f"{shape} as the path gives it", args, kwargs, compare)
+        check_air(name, f"{shape} with the special values", air_edges(name, args, special), kwargs, compare)
+        if name == "rescue_quotients":
+            trace, shift = args[0], args[5]
+            explicit = args[:5] + (0, torch.roll(trace, -shift, dims=-1))
+            check_air(name, f"{shape} with the next rows given (shift 0)", explicit, {}, compare)
+        kern, plain = getattr(K, name), K.PLAIN[name]
+        ms = time_launches(lambda: kern(*args, **kwargs), 200)
+        dev_us = profile_kernel(name, lambda: kern(*args, **kwargs), 50)
+        plain_ms = time_launches(lambda: plain(*args, **kwargs), 3, warm=1)
+        bound, what = air_bound(name, args)
+        records[name] = kernel_record(name, worst_err[name], ms, plain_ms, bound)
+        print(f"  {name} {shape} ({what}): {ms:.6f} ms/launch (CUDA events), device {fmt_us(dev_us)}/launch, "
+              f"plain {plain_ms:.3f} ms, bound {bound[0]:.9f} ms ({bound[1]}) on {smi}")
+
+
 def large_path(dev, smi, records, worst_err, compare) -> None:
     """Phase 5: the large-trace path's kernels against their plain
     versions, the four-step NTT, the card against the CPU with every large
@@ -856,6 +1072,32 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
         del x, run, plain
     torch.cuda.empty_cache()
 
+    # H11 at the 2^20 prove's combination (C = R = 1, FRI domain 2^24, 6 x
+    # 512 MiB): the first and last AIR_SPOT columns against the plain
+    # version on the same columns (the function is pointwise), with the
+    # special values in front; its time beside the bound
+    n = 1 << NTT_LARGE[1]
+    cw = [random_codeword(shape, 3300 + k, dev)
+          for k, shape in enumerate(((8, n), (1, 8, n), (1, 8, n), (1, 8, n), (1, 8, n), (5, 8, 1)))]
+    special = device_from_ints([0, 1, P - 1, P - 2, (1 << 128) % P], dev)
+    edge = air_edges("combination", tuple(cw), special)
+    for label, args in (("random", tuple(cw)), ("with the special values", edge)):
+        got = K.combination(*args)
+        torch.cuda.synchronize()
+        for lo in (0, n - AIR_SPOT):
+            part = [x[..., lo:lo + AIR_SPOT] for x in args[:5]] + [args[5]]
+            compare("combination", f"(8, 2^{NTT_LARGE[1]}) C = R = 1 {label}, columns [{lo}, {lo + AIR_SPOT}) "
+                    f"against plain", got[..., lo:lo + AIR_SPOT], K.combination_plain(*part))
+        del got
+    del edge
+    ms = time_launches(lambda: K.combination(*cw), 10)
+    dev_us = profile_kernel("combination", lambda: K.combination(*cw), 5)
+    bound, what = air_bound("combination", cw)
+    print(f"  combination (8, 2^{NTT_LARGE[1]}), C = R = 1 ({what}): {ms:.6f} ms/launch (CUDA events), device "
+          f"{fmt_us(dev_us)}/launch, bound {bound[0]:.6f} ms ({bound[1]}) on {smi}")
+    del cw
+    torch.cuda.empty_cache()
+
     # the card against the CPU with every large branch forced
     x_small = FieldElement(rng.randrange(P), field)
     proofs = {}
@@ -901,7 +1143,8 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
     assert ok, f"verify rejected the large proof: {stark.last_rejection}"
     print(f"  launches in the large path (preprocess, prove, verify): {path_launches}")
     # every transform of this path is above 8192 points: H8's, not H3's
-    for name in ("mont_mul", "mont_pow", "add_mod", "sub_mod", "ntt_tiled", "merkle", "seed_expand", "fri_fold"):
+    for name in ("mont_mul", "mont_pow", "add_mod", "sub_mod", "ntt_tiled", "merkle", "seed_expand", "fri_fold",
+                 "combination"):
         assert path_launches[name] > 0, f"{name} was not launched on the large path"
     for name in LARGE_KERNELS:
         records[name]["launches"] = path_launches[name]
@@ -1080,6 +1323,22 @@ def batch_path(dev, smi, records, worst_err, compare, scheme) -> None:
     assert not scheme.verify(keys[1][1], docs[0], sigs[0]), "verify accepted another key's pk"
     print(f"  all {BATCH} signatures verify under FastRPSSS ({verify_s:.3f} s, {verify_s / BATCH:.5f} s each); "
           f"a forged document and another key's pk are rejected; {len(sigs[0])} bytes a signature")
+    # H10 and H11 at the batch's inputs (per-proof boundary tables and
+    # weights) against their plain versions, then with the special values;
+    # each timed beside its bound
+    special = device_from_ints([0, 1, P - 1, P - 2, (1 << 128) % P], dev)
+    calls = capture_calls(K, ("rescue_quotients", "combination"), lambda: sign_batch(sks, docs))
+    for name, (args, kwargs) in calls.items():
+        shape = tuple(args[0].shape)
+        check_air(name, f"batch {shape}", args, kwargs, compare)
+        check_air(name, f"batch {shape} with the special values", air_edges(name, args, special), kwargs, compare)
+        ms = time_launches(lambda: getattr(K, name)(*args, **kwargs), 50)
+        dev_us = profile_kernel(name, lambda: getattr(K, name)(*args, **kwargs), 20)
+        plain_ms = time_launches(lambda: K.PLAIN[name](*args, **kwargs), 1, warm=1)
+        bound, what = air_bound(name, args)
+        print(f"  {name} batch {shape} ({what}): {ms:.6f} ms/launch (CUDA events), device {fmt_us(dev_us)}/launch, "
+              f"plain {plain_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}) on {smi}")
+    del calls
     wall, busy, seen = profile_all(lambda: sign_batch(sks, docs))
     if busy is None:
         print(f"  profile of one batch: wall {wall:.4f} s, device time not measured")
@@ -1853,13 +2112,20 @@ def main() -> int:
     assert accepted, f"verify rejected an honest signature: {scheme.stark.last_rejection}"
     assert not scheme.verify(pk, b"forged document", sig), "verify accepted a forged document"
     assert not scheme.verify(pk_other, DOC, sig), "verify accepted another key's pk"
+    # H10-H12 against their plain versions at the inputs this path gives
+    # them (their records)
+    air_path(dev, smi, records, worst_err, compare, scheme, sk, pk, sig)
+    assert worst_mismatch == 0, "a kernel disagrees with its plain version"
     # H4, H5 and H6 are not on this path (the sign's codewords are under
-    # DEVICE_COMMIT_MIN, its randomizer under bulk_randomizer_threshold);
-    # phase 5's 2^20 path reads their launches.  H7's record is made in
-    # phase 6, which reads the batch's launches.
+    # DEVICE_COMMIT_MIN, its randomizer under bulk_randomizer_threshold),
+    # nor H1's subtract (the sign's quotients are H10's); phase 5's 2^20
+    # path reads their launches.  H7's record is made in phase 6, which
+    # reads the batch's launches.  H12 is launched by the verify.
     for name in K.KERNELS:
-        if name not in LARGE_KERNELS + SHARDED_ONLY:
+        if name not in LARGE_KERNELS + SHARDED_ONLY + VERIFY_KERNELS:
             assert sign_launches[name] > 0, f"{name} was not launched during sign"
+        if name in VERIFY_KERNELS:
+            assert path_launches[name] > sign_launches[name], f"{name} was not launched during verify"
         if name not in LARGE_KERNELS + BATCH_KERNELS + SHARDED_ONLY:
             records[name]["launches"] = path_launches[name]
     print(f"signature: {len(sig)} bytes")
@@ -1886,11 +2152,15 @@ def main() -> int:
     K.reset_launch_counts()
     scheme.sign(sk, DOC)
     torch.cuda.synchronize()
-    print(f"kernel launches in one warm sign: {sum(K.LAUNCHES.values())} {dict(K.LAUNCHES)}")
+    warm_launches = sum(K.LAUNCHES.values())
+    print(f"kernel launches in one warm sign: {warm_launches} {dict(K.LAUNCHES)}")
     K.reset_launch_counts()
     assert scheme.verify(pk, DOC, sig)
     torch.cuda.synchronize()
-    print(f"kernel launches in one verify: {sum(K.LAUNCHES.values())} {dict(K.LAUNCHES)}")
+    verify_launches = sum(K.LAUNCHES.values())
+    print(f"kernel launches in one verify: {verify_launches} {dict(K.LAUNCHES)}")
+    assert warm_launches <= SIGN_MAX_LAUNCHES, f"a warm sign made {warm_launches} launches"
+    assert verify_launches <= VERIFY_MAX_LAUNCHES, f"a verify made {verify_launches} launches"
     # the Rescue trace alone: 27 rounds on one 2-element state, one launch
     sk_dev = device_from_ints([sk.value], dev)
     K.reset_launch_counts()

@@ -23,13 +23,21 @@ the FRI fold (stark_anatomy_tpu/protocols/fri.py:_fold_kernel and
 _square_half) and writes the folded codeword's canonical form beside it;
 H7 ``fri_fold_batched`` does the same for a batch of codewords, one
 challenge per proof (stark_anatomy_tpu/protocols/fri.py:
-_fold_kernel_batched).
-The sources are csrc/field.cu, csrc/ntt_tiled.cu (H8) and
-csrc/ntt_columns.cu (H9), the word arithmetic they share with
-csrc/merkle.cu, csrc/field_arith.cuh, and H3's passes, which H8's blocks
-run too and whose DFTs H9 runs, csrc/ntt_passes.cuh; the header
-of each source says what bounds each kernel and how the design answers
-it.
+_fold_kernel_batched).  H10 ``rescue_quotients`` computes the boundary
+and transition quotients of the Rescue AIR in one launch
+(stark_anatomy_tpu/protocols/fast_stark.py:_bq_core and _air_quotient_fn
+over models/rescue_prime.py:_rescue_air_kernel), H11 ``combination`` the
+weighted combination codeword (fast_stark.py:_combination_core, the batch
+core's weighted_sum), H12 ``verify_core`` the verifier's combination at
+the query points (fast_stark.py:_verify_core with the Rescue index
+evaluator).
+The sources are csrc/field.cu, csrc/ntt_tiled.cu (H8),
+csrc/ntt_columns.cu (H9) and csrc/air.cu (H10-H12), the word arithmetic
+they share with csrc/merkle.cu, csrc/field_arith.cuh, H3's passes, which
+H8's blocks run too and whose DFTs H9 runs, csrc/ntt_passes.cuh, the
+power chains of H0's ladder and H12, csrc/pow_chain.cuh, and the Rescue
+AIR of H10 and H12, csrc/rescue_air.cuh; the header of each source says
+what bounds each kernel and how the design answers it.
 
 Each wrapper takes int32 limb tensors (..., 8, n) in Montgomery form:
 * on a CPU tensor it runs the kernel's plain PyTorch version below;
@@ -66,17 +74,22 @@ SOURCES = {                       # library stem -> CUDA source
     "stark_merkle": os.path.join(_PKG, "csrc", "merkle.cu"),
     "stark_ntt_tiled": os.path.join(_PKG, "csrc", "ntt_tiled.cu"),
     "stark_ntt_columns": os.path.join(_PKG, "csrc", "ntt_columns.cu"),
+    "stark_air": os.path.join(_PKG, "csrc", "air.cu"),
 }
-HEADERS = tuple(os.path.join(_PKG, "csrc", h) for h in ("field_arith.cuh", "ntt_passes.cuh"))
+HEADERS = tuple(os.path.join(_PKG, "csrc", h)
+                for h in ("field_arith.cuh", "ntt_passes.cuh", "pow_chain.cuh", "rescue_air.cuh"))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 BINARY = ("mont_mul", "add_mod", "sub_mod")
 KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "rescue_perm", "ntt", "merkle",
-           "seed_expand", "fri_fold", "fri_fold_batched", "ntt_tiled", "ntt_columns")
+           "seed_expand", "fri_fold", "fri_fold_batched", "ntt_tiled", "ntt_columns",
+           "rescue_quotients", "combination", "verify_core")
+AIR_KERNELS = ("rescue_quotients", "combination", "verify_core")
 LIBRARY = {name: "stark_merkle" if name in ("merkle", "seed_expand")
-           else f"stark_{name}" if name in ("ntt_tiled", "ntt_columns") else "stark_field"
+           else f"stark_{name}" if name in ("ntt_tiled", "ntt_columns")
+           else "stark_air" if name in AIR_KERNELS else "stark_field"
            for name in KERNELS}
 RESCUE_M = 2            # Rescue-Prime state width
 RESCUE_ROUNDS = 27
@@ -110,7 +123,7 @@ def _run(out: str, src: str, k: int, factor: str) -> list:
 # for m = 2, 3, 5, 10, 11, then x^203 from x^3, then the zero bit and the
 # 119 ones in blocks of 10, 10 and nine of 11 (each m squarings and a
 # product by x^(2^m - 1)).  136 squarings and 18 products, 154 against the
-# ladder's 250 (127 + 123).  csrc/field.cu:pow_inv runs the same steps;
+# ladder's 250 (127 + 123).  csrc/pow_chain.cuh:pow_inv runs the same steps;
 # the plain ladder mont_pow_plain stays the independent yardstick.
 INV_CHAIN = (
     [("x3", "x", "x"), ("x3", "x3", "x")]                         # x^(2^2 - 1)
@@ -188,6 +201,12 @@ _ARGTYPES = {
     + [ctypes.c_void_p] * 4 + [ctypes.c_int64] + [ctypes.c_void_p] * 2 + [ctypes.c_int],
     "ntt_columns": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int64]
     + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64] + [ctypes.c_void_p] * 5 + [ctypes.c_int],
+    "rescue_quotients": [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [ctypes.c_void_p, ctypes.c_int],
+    "combination": [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p, ctypes.c_int],
+    "verify_core": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+                                            ctypes.c_void_p, ctypes.c_int64]
+    + [ctypes.c_void_p] * 8 + [ctypes.c_int],
 }
 
 
@@ -729,6 +748,199 @@ def ntt_columns(pieces: Sequence[torch.Tensor], b0: int, tables: ColumnTables) -
     return out
 
 
+# ---------------------------------------------------------------------------
+# the AIR kernels (csrc/air.cu)
+# ---------------------------------------------------------------------------
+
+def air_rows(name: str, x: torch.Tensor, lead: Tuple[int, ...], k: Optional[int],
+             n: int) -> Tuple[int, int, int]:
+    """(sb, sk, sl) of an operand the AIR kernels take for a call over the
+    batch ``lead`` (() or (B,)): an int32 tensor (k, 8, n), or (8, n) where
+    k is None, with or without the lead axis in front (without: shared by
+    the batch, sb = 0), its elements adjacent.  Element (b, k, j) has limb l
+    at b sb + k sk + l sl + j.  Raises ValueError for any other operand."""
+    tail = (NLIMBS, n) if k is None else (k, NLIMBS, n)
+    extra = tuple(x.shape[: x.dim() - len(tail)])
+    if (x.dtype != torch.int32 or x.dim() < len(tail) or tuple(x.shape[-len(tail):]) != tail
+            or extra not in ((), lead) or (n > 1 and x.stride(-1) != 1)):
+        want = f"{tail}" + (f" or {lead + tail}" if lead else "")
+        raise ValueError(f"{name}: the kernel takes an int32 {want} tensor with adjacent elements; "
+                         f"got {tuple(x.shape)} {x.dtype} with strides {x.stride()}")
+    sb = x.stride(0) if extra and math.prod(lead) > 1 else 0
+    return sb, (0 if k is None else x.stride(-3)), x.stride(-2)
+
+
+def _air_launch(name: str, tensors, *args) -> None:
+    """Launch an AIR kernel: ``tensors`` (the operands, for the device and
+    stream checks), then the entry point's arguments less the stream."""
+    _check_cuda(name, *tensors)
+    _finish(name, _entry(name)(*args, *_stream(tensors[0])))
+
+
+def _ptrs(xs) -> ctypes.Array:
+    return (ctypes.c_void_p * len(xs))(*(x.data_ptr() for x in xs))
+
+
+def _words(values) -> ctypes.Array:
+    return (ctypes.c_int64 * len(values))(*values)
+
+
+def quotients_layout(trace, interp, inv_bz, inv_tz, tables, shift: int, next_rows) -> list:
+    """The (sb, sk, sl) of each operand of an H10 call, in the entry point's
+    order (trace, next, interp, inv_bz, c1, c2, inv_tz): trace (..., 2, 8,
+    n) with lead () or (B,), next_rows None or of trace's shape, interp and
+    inv_bz (2, 8, n) or of trace's shape, c1 and c2 (2, 8, n), inv_tz
+    (8, n), the MDS tables contiguous (2, 2, 8, 1), 0 <= shift < n.  Raises
+    ValueError for any other call."""
+    c1, c2, mds, mds_inv = tables
+    if trace.dim() not in (3, 4):
+        raise ValueError(f"rescue_quotients: the trace is (2, 8, n) or (B, 2, 8, n); got {tuple(trace.shape)}")
+    lead, n = tuple(trace.shape[:-3]), trace.shape[-1]
+    if not 0 <= shift < max(n, 1):
+        raise ValueError(f"rescue_quotients: the shift must lie in [0, {n}); got {shift}")
+    m = RESCUE_M
+    strides = [air_rows("rescue_quotients: trace", trace, lead, m, n)]
+    if next_rows is None:
+        strides.append(strides[0])
+    else:
+        if tuple(next_rows.shape) != tuple(trace.shape):
+            raise ValueError(f"rescue_quotients: next_rows must have the trace's shape {tuple(trace.shape)}; "
+                             f"got {tuple(next_rows.shape)}")
+        strides.append(air_rows("rescue_quotients: next_rows", next_rows, lead, m, n))
+    strides += [air_rows(f"rescue_quotients: {label}", x, lead, m, n)
+                for label, x in (("interp", interp), ("inv_bz", inv_bz))]
+    strides += [air_rows(f"rescue_quotients: {label}", x, (), m, n) for label, x in (("c1", c1), ("c2", c2))]
+    strides.append(air_rows("rescue_quotients: inv_tz", inv_tz, (), None, n))
+    _check_table("rescue_quotients: mds", mds, (m, m, NLIMBS, 1))
+    _check_table("rescue_quotients: mds_inv", mds_inv, (m, m, NLIMBS, 1))
+    return strides
+
+
+def rescue_quotients(trace: torch.Tensor, interp: torch.Tensor, inv_bz: torch.Tensor,
+                     inv_tz: torch.Tensor, tables, shift: int = 0,
+                     next_rows: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """H10: the boundary quotients and the Rescue AIR's transition quotients
+    of trace codewords (..., 2, 8, n), in one launch (csrc/air.cu).
+    ``tables`` is models/rescue_prime.py:rescue_air_tables's (c1, c2, mds,
+    mds_inv).  The next cycle of point j is row (j + shift) mod n of
+    ``next_rows``, or of the trace itself where next_rows is None (shift =
+    the expansion factor: no rolled copy).  Returns contiguous (bq, tq):
+        bq = (trace - interp) inv_bz,
+        tq = AIR(trace, next; c1, c2, mds, mds_inv) inv_tz,
+    both (..., 2, 8, n)."""
+    strides = quotients_layout(trace, interp, inv_bz, inv_tz, tables, shift, next_rows)
+    operands = [trace, trace if next_rows is None else next_rows, interp, inv_bz, *tables[:2], inv_tz]
+    if all(x.device.type == "cpu" for x in (*operands, *tables[2:])):
+        return rescue_quotients_plain(trace, interp, inv_bz, inv_tz, tables, shift, next_rows)
+    bq = torch.empty(trace.shape, dtype=torch.int32, device=trace.device)
+    tq = torch.empty_like(bq)
+    if bq.numel() == 0:
+        return bq, tq
+    n = trace.shape[-1]
+    _air_launch("rescue_quotients", operands + list(tables[2:]),
+                bq.data_ptr(), tq.data_ptr(), _ptrs(operands), _words([v for t in strides for v in t]),
+                tables[2].data_ptr(), tables[3].data_ptr(), trace.numel() // (RESCUE_M * NLIMBS * n),
+                n, shift)
+    return bq, tq
+
+
+def combination_layout(rand, tq, bq, tq_shift, bq_shift, weights) -> list:
+    """The (sb, sk, sl) of each operand of an H11 call, in the entry point's
+    order: rand (8, n) or (B, 8, n); tq (..., C, 8, n) and bq (..., R, 8, n)
+    with rand's lead; the shifts (C, 8, n) and (R, 8, n); weights (W, 8, 1)
+    or (..., W, 8, 1), W = 1 + 2C + 2R.  Raises ValueError otherwise."""
+    if rand.dim() not in (2, 3) or tq.dim() != rand.dim() + 1 or bq.dim() != rand.dim() + 1:
+        raise ValueError(f"combination: rand (8, n) or (B, 8, n) with tq and bq one axis more; got "
+                         f"{tuple(rand.shape)}, {tuple(tq.shape)}, {tuple(bq.shape)}")
+    lead, n = tuple(rand.shape[:-2]), rand.shape[-1]
+    C, R = tq.shape[-3], bq.shape[-3]
+    return [air_rows("combination: rand", rand, lead, None, n),
+            air_rows("combination: tq", tq, lead, C, n),
+            air_rows("combination: bq", bq, lead, R, n),
+            air_rows("combination: tq_shift", tq_shift, (), C, n),
+            air_rows("combination: bq_shift", bq_shift, (), R, n),
+            air_rows("combination: weights", weights, lead, 1 + 2 * C + 2 * R, 1)]
+
+
+def combination(rand: torch.Tensor, tq: torch.Tensor, bq: torch.Tensor, tq_shift: torch.Tensor,
+                bq_shift: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """H11: the weighted combination codeword (..., 8, n), FRI's input, in
+    one launch (csrc/air.cu):
+        w_0 rand + sum_s tq_s (w_{2s+1} + w_{2s+2} tq_shift_s)
+                 + sum_r bq_r (w_{2C+2r+1} + w_{2C+2r+2} bq_shift_r),
+    the weights in the transcript's order, shared (W, 8, 1) or one set a
+    proof (..., W, 8, 1)."""
+    strides = combination_layout(rand, tq, bq, tq_shift, bq_shift, weights)
+    operands = [rand, tq, bq, tq_shift, bq_shift, weights]
+    if all(x.device.type == "cpu" for x in operands):
+        return combination_plain(rand, tq, bq, tq_shift, bq_shift, weights)
+    out = torch.empty(rand.shape, dtype=torch.int32, device=rand.device)
+    if out.numel() == 0:
+        return out
+    n = rand.shape[-1]
+    _air_launch("combination", operands, out.data_ptr(), _ptrs(operands),
+                _words([v for t in strides for v in t]), rand.numel() // (NLIMBS * n), n,
+                tq.shape[-3], bq.shape[-3])
+    return out
+
+
+def verify_layout(vals, bz, ip, weights, idx, tables, tq_sh, bq_sh) -> int:
+    """K of an H12 call: vals contiguous (8, 8K), bz and ip contiguous
+    (2, 8, D), D >= 1, weights contiguous (9, 8, 1), idx contiguous int64
+    (K,), c1 and c2 (2, 8, N), the MDS tables contiguous (2, 2, 8, 1), two
+    transition and two boundary shift exponents in [0, 2^64).  Raises
+    ValueError for any other call."""
+    m = RESCUE_M
+    if idx.dtype != torch.int64 or idx.dim() != 1 or not idx.is_contiguous():
+        raise ValueError(f"verify_core: idx must be a contiguous int64 (K,) tensor; got "
+                         f"{tuple(idx.shape)} {idx.dtype}")
+    K = idx.shape[0]
+    _check_table("verify_core: vals", vals, (NLIMBS, (2 * m + 4) * K))
+    for label, x in (("bz", bz), ("ip", ip)):
+        if x.dim() != 3 or x.shape[-1] < 1:
+            raise ValueError(f"verify_core: {label} must be ({m}, {NLIMBS}, D), D >= 1; got {tuple(x.shape)}")
+        _check_table(f"verify_core: {label}", x, (m, NLIMBS, x.shape[-1]))
+    _check_table("verify_core: weights", weights, (1 + 4 * m, NLIMBS, 1))
+    c1, c2, mds, mds_inv = tables
+    for label, x in (("c1", c1), ("c2", c2)):
+        air_rows(f"verify_core: {label}", x, (), m, x.shape[-1])
+    _check_table("verify_core: mds", mds, (m, m, NLIMBS, 1))
+    _check_table("verify_core: mds_inv", mds_inv, (m, m, NLIMBS, 1))
+    shifts = tuple(tq_sh) + tuple(bq_sh)
+    if len(tq_sh) != m or len(bq_sh) != m or not all(0 <= e < 1 << 64 for e in shifts):
+        raise ValueError(f"verify_core: {m} transition and {m} boundary shift exponents in [0, 2^64); "
+                         f"got {tuple(tq_sh)} and {tuple(bq_sh)}")
+    return K
+
+
+def verify_core(vals: torch.Tensor, bz: torch.Tensor, ip: torch.Tensor, weights: torch.Tensor,
+                idx: torch.Tensor, tables, tq_sh: Sequence[int], bq_sh: Sequence[int]) -> torch.Tensor:
+    """H12: the verifier's combination values (8, K) at K query points of the
+    Rescue AIR, in one launch (csrc/air.cu).  ``vals`` (8, 8K) holds, per
+    register, the K current and K next opened boundary quotients, then
+    the K randomizer and K transition-zerofier openings, the K points and
+    the K next points; ``bz`` and ``ip`` the boundary zerofiers' and
+    interpolants' coefficients (2, 8, D); ``idx`` the query indices into
+    the round-constant codewords of ``tables`` (rescue_air_tables's);
+    ``weights`` (9, 8, 1); the shifts the degree-adjusting exponents.  The
+    values of protocols/fast_stark.py:_verify_core with the Rescue index
+    evaluator, 1/0 taken as 0."""
+    K = verify_layout(vals, bz, ip, weights, idx, tables, tq_sh, bq_sh)
+    operands = [vals, bz, ip, weights, idx, *tables]
+    if all(x.device.type == "cpu" for x in operands):
+        return verify_core_plain(vals, bz, ip, weights, idx, tables, tq_sh, bq_sh)
+    out = torch.empty((NLIMBS, K), dtype=torch.int32, device=vals.device)
+    if K == 0:
+        return out
+    c1, c2 = tables[:2]
+    _air_launch("verify_core", operands, out.data_ptr(), vals.data_ptr(), K, bz.data_ptr(),
+                bz.shape[-1], ip.data_ptr(), ip.shape[-1], _ptrs([c1, c2]),
+                _words([c1.stride(-3), c1.stride(-2), c2.stride(-3), c2.stride(-2)]), idx.data_ptr(),
+                weights.data_ptr(), tables[2].data_ptr(), tables[3].data_ptr(),
+                (ctypes.c_uint64 * 4)(*tq_sh, *bq_sh))
+    return out
+
+
 def mont_words(value: int) -> Tuple[int, int]:
     """(low, high) 64-bit halves of the Montgomery form of a field element."""
     m = value % P * R % P
@@ -1058,10 +1270,105 @@ def fri_fold_batched_plain(codeword: torch.Tensor, u: torch.Tensor, alphas: torc
     return _fold_plain(codeword, u, alphas)
 
 
+def rescue_air_plain(cur: torch.Tensor, nxt: torch.Tensor, c1: torch.Tensor, c2: torch.Tensor,
+                     mds: torch.Tensor, mds_inv: torch.Tensor) -> torch.Tensor:
+    """The Rescue AIR's constraints (..., 2, 8, n) over the plain field
+    functions, the glue of models/rescue_prime.py:_rescue_air_kernel:
+    [sum_k MDS[i][k] cur_k^3 + c1_i] - [sum_k MDSinv[i][k] (nxt_k - c2_k)]^3."""
+    cube = mont_mul_plain(mont_mul_plain(cur, cur), cur)
+    inner = sub_mod_plain(nxt, c2)
+    outs = []
+    for i in range(RESCUE_M):
+        lhs = mont_mul_plain(cube[..., 0, :, :], mds[i, 0])
+        rhs = mont_mul_plain(inner[..., 0, :, :], mds_inv[i, 0])
+        for k in range(1, RESCUE_M):
+            lhs = add_mod_plain(lhs, mont_mul_plain(cube[..., k, :, :], mds[i, k]))
+            rhs = add_mod_plain(rhs, mont_mul_plain(inner[..., k, :, :], mds_inv[i, k]))
+        lhs = add_mod_plain(lhs, c1[..., i, :, :])
+        outs.append(sub_mod_plain(lhs, mont_mul_plain(mont_mul_plain(rhs, rhs), rhs)))
+    return torch.stack(outs, dim=-3)
+
+
+def rescue_quotients_plain(trace: torch.Tensor, interp: torch.Tensor, inv_bz: torch.Tensor,
+                           inv_tz: torch.Tensor, tables, shift: int = 0,
+                           next_rows: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of H10: the glue the port ran before it (the boundary
+    quotient, the rolled trace, the AIR and the quotient by inv_tz, as the
+    JAX package's _bq_core and _air_quotient_fn) over the plain field
+    functions."""
+    quotients_layout(trace, interp, inv_bz, inv_tz, tables, shift, next_rows)
+    c1, c2, mds, mds_inv = tables
+    nxt = trace if next_rows is None else next_rows
+    if shift:
+        nxt = torch.roll(nxt, -shift, dims=-1)
+    bq = mont_mul_plain(sub_mod_plain(trace, interp), inv_bz)
+    tq = mont_mul_plain(rescue_air_plain(trace, nxt, c1, c2, mds, mds_inv), inv_tz)
+    return bq, tq
+
+
+def combination_plain(rand: torch.Tensor, tq: torch.Tensor, bq: torch.Tensor, tq_shift: torch.Tensor,
+                      bq_shift: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Plain version of H11: the glue the port ran before it (the JAX
+    package's fast_stark.py:_combination_core) over the plain field
+    functions, a proof's weights broadcast over its row."""
+    combination_layout(rand, tq, bq, tq_shift, bq_shift, weights)
+
+    def w(k):                                              # (8, 1) or (B, 8, 1)
+        return weights[..., k, :, :]
+
+    acc = mont_mul_plain(rand, w(0))
+    k = 1
+    for q, shift in ((tq, tq_shift), (bq, bq_shift)):
+        for s in range(q.shape[-3]):
+            ws = add_mod_plain(w(k), mont_mul_plain(w(k + 1), shift[s]))
+            acc = add_mod_plain(acc, mont_mul_plain(q[..., s, :, :], ws))
+            k += 2
+    return acc
+
+
+def horner_plain(coeffs: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """coeffs (..., 8, D), low degree first, at points (..., 8, n), by
+    Horner over the plain field functions (ops/ntt.py:
+    evaluate_domain_horner's steps)."""
+    acc = torch.zeros(torch.broadcast_shapes(coeffs.shape[:-1] + (1,), points.shape),
+                      dtype=torch.int32, device=points.device)
+    for d in range(coeffs.shape[-1] - 1, -1, -1):
+        acc = add_mod_plain(mont_mul_plain(acc, points), coeffs[..., d:d + 1])
+    return acc
+
+
+def verify_core_plain(vals: torch.Tensor, bz: torch.Tensor, ip: torch.Tensor, weights: torch.Tensor,
+                      idx: torch.Tensor, tables, tq_sh: Sequence[int], bq_sh: Sequence[int]) -> torch.Tensor:
+    """Plain version of H12: protocols/fast_stark.py:_verify_core's glue with
+    the Rescue index evaluator, over the plain field functions; 1/tz by the
+    ladder (mont_pow_plain to p - 2, 0 giving 0)."""
+    K = verify_layout(vals, bz, ip, weights, idx, tables, tq_sh, bq_sh)
+    c1, c2, mds, mds_inv = tables
+    m = RESCUE_M
+    parts = [vals[..., i * K:(i + 1) * K] for i in range(2 * m + 4)]
+    bq_cur, bq_next = torch.stack(parts[0:2 * m:2]), torch.stack(parts[1:2 * m:2])
+    rand, tz, x, xn = parts[2 * m:]
+    cur = add_mod_plain(mont_mul_plain(bq_cur, horner_plain(bz, x)), horner_plain(ip, x))
+    nxt = add_mod_plain(mont_mul_plain(bq_next, horner_plain(bz, xn)), horner_plain(ip, xn))
+    cons = rescue_air_plain(cur, nxt, c1.index_select(-1, idx), c2.index_select(-1, idx), mds, mds_inv)
+    tq = mont_mul_plain(cons, mont_pow_plain(tz, P - 2))
+    acc = mont_mul_plain(rand, weights[0])
+    k = 1
+    for q, exps in ((tq, tq_sh), (bq_cur, bq_sh)):
+        for s, e in enumerate(exps):
+            acc = add_mod_plain(acc, mont_mul_plain(q[s], weights[k]))
+            shifted = mont_mul_plain(q[s], mont_pow_plain(x, e))
+            acc = add_mod_plain(acc, mont_mul_plain(shifted, weights[k + 1]))
+            k += 2
+    return acc
+
+
 PLAIN = {
     "mont_mul": mont_mul_plain, "mont_pow": mont_pow_plain,
     "add_mod": add_mod_plain, "sub_mod": sub_mod_plain,
     "rescue_perm": rescue_permutation_plain, "ntt": ntt_plain,
     "fri_fold": fri_fold_plain, "fri_fold_batched": fri_fold_batched_plain,
     "ntt_tiled": ntt_tiled_plain, "ntt_columns": ntt_columns_plain,
+    "rescue_quotients": rescue_quotients_plain, "combination": combination_plain,
+    "verify_core": verify_core_plain,
 }

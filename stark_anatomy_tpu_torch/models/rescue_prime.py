@@ -11,8 +11,13 @@ Device parts, over the field kernels:
   launch of H2 (field/kernels.py:rescue_permutation) on the card, its
   plain version over the rounds on the CPU; the x^(1/3) S-box is a
   128-bit square and multiply, the dominant per-round cost.
-* :func:`_rescue_air_kernel` -- the pointwise AIR on LDE codewords, used by
-  the prover and the batched verifier.
+* :func:`_rescue_air_kernel` -- the pointwise AIR on LDE codewords, the
+  evaluators' glue over H0/H1.  The paths take the kernels that fuse it
+  instead: H10 (field/kernels.py:rescue_quotients, the prover's boundary
+  and transition quotients) and H12 (verify_core, the verifier's
+  combination at the query points).  ``rescue_air_tables`` holds the
+  tables both take, and the evaluators carry them as ``rescue_tables``,
+  so that a caller can tell a Rescue evaluator from another.
 """
 
 from __future__ import annotations
@@ -290,7 +295,9 @@ def rescue_air_tables(stark):
 def make_air_evaluator(stark):
     """Device AIR evaluator bound to a FastStark instance: the round
     constant codewords C1_i(x), C2_i(x) are cached, so each proof pays only
-    the ~20-multiply kernel above."""
+    the ~20-multiply kernel above.  Its ``rescue_tables`` (those of
+    ``rescue_air_tables``) send FastStark.prove to H10, which computes the
+    quotients with this AIR in one launch."""
     c1_lde, c2_lde, mds, mds_inv = rescue_air_tables(stark)
     x_lde = stark._interp_tables()["x_lde"]
 
@@ -299,6 +306,7 @@ def make_air_evaluator(stark):
         c1, c2 = shard_parts(x_lde_arg, x_lde, c1_lde, c2_lde)
         return _rescue_air_kernel(current, next_, c1, c2, mds, mds_inv)
 
+    evaluator.rescue_tables = (c1_lde, c2_lde, mds, mds_inv)
     return evaluator
 
 
@@ -314,4 +322,6 @@ def make_index_air_evaluator(stark):
         c2_pts = c2_lde.index_select(-1, idx)
         return _rescue_air_kernel(current, next_, c1_pts, c2_pts, mds, mds_inv)
 
+    # FastStark.verify takes H12 for an evaluator that carries these
+    evaluator.rescue_tables = (c1_lde, c2_lde, mds, mds_inv)
     return evaluator

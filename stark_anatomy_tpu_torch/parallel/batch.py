@@ -9,14 +9,16 @@ the two lie the host's Fiat-Shamir commitments, which draw the weights:
 ``BatchProver.prove_batch`` calls the two on either side of them, and
 ``build_prover_core`` chains them into one function (``entry.py`` returns
 it with example arguments).  On the card they launch H2 (the trace), H3
-(the transforms), H0 and H1.
+(the transforms), H0 (the LDE's scales), H10 (the boundary and transition
+quotients, the next cycle read in place of a rolled copy) and H11 (the
+combination).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..field import ops as F
+from ..field import kernels as K
 from ..models import rescue_prime as RP
 from ..ops import ntt as NTT
 from ..protocols.fast_stark import FastStark
@@ -35,19 +37,14 @@ def pipeline(stark: FastStark, air_constants, sk_batch, randomizer_cols, rand_po
     rand_poly:       (B, NLIMBS, max_degree+1) randomizer polynomial coeffs
     inv_bz, interp:  (R, NLIMBS, N) or (B, R, NLIMBS, N) boundary tables
     inv_tz:          (NLIMBS, N) inverse transition zerofier codeword"""
-    c1_lde, c2_lde, mds, mds_inv = air_constants
     # trace: (n_cycles, m, L, B) -> columns (B, m, L, n_cycles)
     traces = RP.trace_batch(sk_batch)
     cols = torch.cat([traces.permute(3, 1, 2, 0), randomizer_cols], dim=-1)
 
     trace_lde = stark._trace_lde(cols)                        # (B, R, L, N)
-    next_lde = torch.roll(trace_lde, -stark.expansion_factor, dims=-1)
-
-    bq_lde = F.mont_mul(F.sub(trace_lde, interp), inv_bz)     # (B, R, L, N)
-    constraint = RP._rescue_air_kernel(
-        trace_lde, next_lde, c1_lde, c2_lde, mds, mds_inv
-    )                                                          # (B, C, L, N)
-    tq_lde = F.mont_mul(constraint, inv_tz)
+    # (B, R, L, N) and (B, C, L, N); the next cycle is E points on
+    bq_lde, tq_lde = K.rescue_quotients(trace_lde, interp, inv_bz, inv_tz, air_constants,
+                                        stark.expansion_factor)
     rand_lde = NTT.coset_evaluate(rand_poly, stark.generator.value, stark.fri_domain_length)
     return bq_lde, tq_lde, rand_lde
 
@@ -58,20 +55,9 @@ def combination(bq_lde, tq_lde, rand_lde, weights, tq_shift_pows, bq_shift_pows)
     shifted tq], then per register [bq, shifted bq]).
 
     weights:      (W, NLIMBS, 1) shared, or (B, W, NLIMBS, 1) per proof
-    *_shift_pows: (C, NLIMBS, N) and (R, NLIMBS, N) x^shift codewords"""
-    tq_t = tq_lde.movedim(1, 0)                        # (C, B, L, N)
-    bq_t = bq_lde.movedim(1, 0)                        # (R, B, L, N)
-    sh_tq = F.mont_mul(tq_shift_pows[:, None], tq_t)
-    sh_bq = F.mont_mul(bq_shift_pows[:, None], bq_t)
-    terms = torch.cat([
-        rand_lde[None],
-        torch.stack([tq_t, sh_tq], dim=1).reshape((-1,) + tq_t.shape[1:]),
-        torch.stack([bq_t, sh_bq], dim=1).reshape((-1,) + bq_t.shape[1:]),
-    ])                                                 # (W, B, L, N)
-    w_lead = weights.movedim(-3, 0)                    # (W, L, 1) or (W, B, L, 1)
-    if w_lead.dim() < terms.dim():
-        w_lead = w_lead[:, None]
-    return F.weighted_sum(terms, w_lead)
+    *_shift_pows: (C, NLIMBS, N) and (R, NLIMBS, N) x^shift codewords
+    One launch of H11 (field/kernels.py:combination)."""
+    return K.combination(rand_lde, tq_lde, bq_lde, tq_shift_pows, bq_shift_pows, weights)
 
 
 def build_prover_core(stark: FastStark, air_constants):

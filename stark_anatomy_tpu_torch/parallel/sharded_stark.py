@@ -8,8 +8,8 @@ this class holds each as a ``Sharded`` codeword over the mesh's sp axis
 class overrides them:
 
 * ``_pointwise`` runs the pointwise kernels shard by shard, and
-  ``_roll_left`` (the AIR's next row, the interpolation's rotation)
-  fetches a halo of the next shard;
+  ``_roll_left`` (the AIR's next row, which ``_next_rows`` hands to H10,
+  and the interpolation's rotation) fetches a halo of the next shard;
 * ``_intt`` and ``_lde`` run the distributed four-step NTT
   (parallel/ntt_dist.py; the LDE's coset scale rides its step 1) where
   S >= 2 and S^2 divides the length, the JAX package's rule, else the
@@ -178,6 +178,11 @@ class ShardedFastStark(FastStark):
 
     def _roll_left(self, x: Sharded, k: int) -> Sharded:
         return x.roll_left(k)
+
+    def _next_rows(self, trace_lde: Sharded, k: int):
+        # the next cycle crosses shards: H10 reads the exchanged rows as
+        # they come, at shift 0
+        return self._roll_left(trace_lde, k), 0
 
     def _x_lde_pows(self, exponents) -> Sharded:
         """x^e on the FRI coset shard by shard, by the closed form

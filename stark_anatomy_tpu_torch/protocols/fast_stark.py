@@ -24,13 +24,17 @@ one seed (utils/rand.py, H5), commits on the host by N1 or on the card by
 H4 (commit/device_merkle.py:use_device_commit), and runs FRI on the card
 (protocols/fri.py:Fri.prove, H6 and H4) where the device commit is taken,
 else on the host; the generic AIR compiler ``compile_air`` serves where no
-model evaluator is given.  ``verify`` has the batched device check, and
-``timer`` the per-phase seconds.  The LDE is one N-point coset transform
+model evaluator is given.  Where the evaluator is Rescue's (it carries
+``rescue_tables``), the boundary and transition quotients are one launch
+of H10, and the batched verifier's whole recomputation one of H12; the
+combination is one launch of H11 for every AIR (field/kernels.py).
+``verify`` has the batched device check, and ``timer`` the per-phase
+seconds.  The LDE is one N-point coset transform
 (ops/ntt.py, four-step above NTT_MAX points): the JAX package's
 blocked-coset LDE computes the same values as E transforms of M points,
 which only spared XLA compiles.  ``prove`` reaches its codewords through
 hooks (``_place_codeword``, ``_lde``, ``_intt``, ``_pointwise``,
-``_roll_left``, ``_x_lde_pows``, ``_commit_rows``, ``_fri``, ...): here
+``_roll_left``, ``_next_rows``, ``_x_lde_pows``, ``_commit_rows``, ``_fri``, ...): here
 each is the one-device operation, and parallel/sharded_stark.py
 overrides them to shard the codeword axis.
 """
@@ -52,6 +56,7 @@ from ..commit.device_merkle import (
 )
 from ..commit.merkle import MerkleTree, open_multi, verify_multi
 from ..errors import MalformedProof, VerificationError, rejects_malformed
+from ..field import kernels as K
 from ..field import ops as F
 from ..field.limbs import NLIMBS
 from ..field.scalar import FieldElement, P
@@ -222,8 +227,17 @@ class FastStark(StarkParams):
         """The codeword rolled left by k: element i + k at i."""
         return torch.roll(x, -k, dims=-1)
 
+    def _next_rows(self, trace_lde, k: int):
+        """(next rows, shift) for H10: the trace's next cycle is element
+        i + k, read in place (the sharded prover's rows cross shards, so it
+        rolls them and reads at shift 0)."""
+        return None, k
+
     def _x_lde_pows(self, exponents) -> torch.Tensor:
-        """The stacked codewords of x^e for each exponent."""
+        """The stacked codewords of x^e for each exponent (one exponent: a
+        view of the cached codeword, no copy)."""
+        if len(exponents) == 1:
+            return self._x_lde_pow(exponents[0]).unsqueeze(0)
         return torch.stack([self._x_lde_pow(e) for e in exponents])
 
     def _draw(self, urandom, count: int, size: int) -> List[bytes]:
@@ -398,10 +412,18 @@ class FastStark(StarkParams):
             trace_lde = self._trace_lde(columns)                 # (R, L, N)
             self._sync()
 
-        # boundary quotients, committed
+        # boundary quotients, committed; with the Rescue AIR's evaluator the
+        # transition quotients come from the same launch (H10), the trace's
+        # next cycle read in place
+        rescue = getattr(air_evaluator, "rescue_tables", None)
         with timer.phase("boundary_quotients"):
             inv_bz, interp = self._boundary_tables(boundary)
-            bq_lde = self._pointwise(_bq_core, trace_lde, interp, inv_bz)   # (R, L, N)
+            if rescue is not None:
+                bq_lde, tq_lde = self._pointwise(                          # (R, L, N), (C, L, N)
+                    _rescue_quotients_core, trace_lde, *self._next_rows(trace_lde, self.expansion_factor),
+                    interp, inv_bz, transition_zerofier.inv_codeword, *rescue)
+            else:
+                bq_lde = self._pointwise(_bq_core, trace_lde, interp, inv_bz)   # (R, L, N)
             self._sync()
         with timer.phase("commit_bq"):
             bq_trees = []
@@ -413,14 +435,16 @@ class FastStark(StarkParams):
 
         # transition quotients: pointwise AIR / zerofier
         with timer.phase("air_quotients"):
-            if air_evaluator is None:
-                air_evaluator = self._compiled_air(transition_constraints)
-            next_lde = self._roll_left(trace_lde, self.expansion_factor)
-            tq_lde = self._pointwise(_air_quotient_core, air_evaluator, t["x_lde"], trace_lde,
-                                     next_lde, transition_zerofier.inv_codeword)
+            if rescue is None:
+                if air_evaluator is None:
+                    air_evaluator = self._compiled_air(transition_constraints)
+                next_lde = self._roll_left(trace_lde, self.expansion_factor)
+                tq_lde = self._pointwise(_air_quotient_core, air_evaluator, t["x_lde"], trace_lde,
+                                         next_lde, transition_zerofier.inv_codeword)
+                del next_lde
             # nothing downstream reads the trace LDE (512 MiB a register at
             # N = 2^24)
-            del trace_lde, next_lde
+            del trace_lde
             self._sync()
 
         # randomizer polynomial
@@ -454,7 +478,7 @@ class FastStark(StarkParams):
             tq_shift = self._x_lde_pows([max_degree - b for b in tq_bounds])
             bq_shift = self._x_lde_pows([max_degree - b for b in bq_bounds])
             w_dev = torch.stack([mont_const(wv.value, dev) for wv in weights])
-            combo = self._pointwise(_combination_core, rand_lde, tq_lde, bq_lde, tq_shift, bq_shift, w_dev)
+            combo = self._pointwise(K.combination, rand_lde, tq_lde, bq_lde, tq_shift, bq_shift, w_dev)
             del tq_shift, bq_shift, tq_lde, bq_lde, rand_lde
             self._sync()
 
@@ -655,7 +679,7 @@ class FastStark(StarkParams):
         combination values check out."""
         R = self.num_registers
         N = self.fri.domain_length
-        K = len(indices)
+        count = len(indices)
         dev = self.device
         next_indices = [(i + self.expansion_factor) % N for i in indices]
 
@@ -669,19 +693,22 @@ class FastStark(StarkParams):
         g, w = self.generator.value, self.omega.value
         flat.extend(g * pow(w, i, P) % P for i in indices)
         flat.extend(g * pow(w, i, P) % P for i in next_indices)
-        vals = device_from_ints(flat, dev)                        # (L, (2R+4)K)
+        vals = device_from_ints(flat, dev)                        # (L, (2R+4) count)
 
         w_dev = torch.stack([mont_const(wv.value, dev) for wv in weights])
         tq_sh = tuple(max_degree - b for b in tq_bounds)
         bq_sh = tuple(max_degree - b for b in bq_bounds)
         idx_dev = torch.tensor(indices, dtype=torch.int64, device=dev)
 
-        combo = _verify_core(
-            vals, self._stack_coeffs(zerofiers), self._stack_coeffs(interpolants),
-            w_dev, idx_dev, air_index_evaluator, R, K, tq_sh, bq_sh,
-        )
+        bz, ip = self._stack_coeffs(zerofiers), self._stack_coeffs(interpolants)
+        rescue = getattr(air_index_evaluator, "rescue_tables", None)
+        if rescue is not None:
+            # the Rescue AIR's whole recomputation in one launch (H12)
+            combo = K.verify_core(vals, bz, ip, w_dev, idx_dev, rescue, tq_sh, bq_sh)
+        else:
+            combo = _verify_core(vals, bz, ip, w_dev, idx_dev, air_index_evaluator, R, count, tq_sh, bq_sh)
         got = ints_from_device(combo)
-        for i in range(K):
+        for i in range(count):
             if got[i] != claimed[i]:
                 return indices[i]
         return None
@@ -733,32 +760,17 @@ def _bq_core(trace_lde, interp, inv_bz):
     return F.mont_mul(F.sub(trace_lde, interp), inv_bz)
 
 
+def _rescue_quotients_core(trace_lde, next_lde, shift, interp, inv_bz, inv_tz, c1, c2, mds, mds_inv):
+    """H10 (field/kernels.py:rescue_quotients) as a pointwise function of
+    its operands, so that a sharded prover runs it shard by shard."""
+    return K.rescue_quotients(trace_lde, interp, inv_bz, inv_tz, (c1, c2, mds, mds_inv), shift, next_lde)
+
+
 def _air_quotient_core(air_evaluator, x_lde, trace_lde, next_lde, inv_tz):
     """The AIR quotient: the constraints evaluated pointwise on the trace and
     its one-cycle shift (``next_lde``, the trace rolled by the expansion
     factor), divided by the transition zerofier."""
     return F.mont_mul(air_evaluator(x_lde, trace_lde, next_lde), inv_tz)
-
-
-def _combination_core(rand_lde, tq_lde, bq_lde, tq_shift, bq_shift, weights):
-    """Weighted combination codeword.
-
-    weights: (W, L, 1) in transcript order [w_rand, (w_tq, w_tq_sh)*C,
-    (w_bq, w_bq_sh)*R]; tq_lde/tq_shift (C, L, N); bq_lde/bq_shift
-    (R, L, N)."""
-    C = tq_lde.shape[0]
-    R = bq_lde.shape[0]
-    terms = [F.mont_mul(rand_lde, weights[0])]
-    idx = 1
-    for s in range(C):
-        ws = F.add(weights[idx], F.mont_mul(weights[idx + 1], tq_shift[s]))
-        terms.append(F.mont_mul(tq_lde[s], ws))
-        idx += 2
-    for s in range(R):
-        ws = F.add(weights[idx], F.mont_mul(weights[idx + 1], bq_shift[s]))
-        terms.append(F.mont_mul(bq_lde[s], ws))
-        idx += 2
-    return F.field_sum(torch.stack(terms))
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The ladder's fixed chain for the Fermat inverse x^(p-2)
-(field/kernels.py:INV_CHAIN, csrc/field.cu:pow_inv), the wrapper's choice
+(field/kernels.py:INV_CHAIN, csrc/pow_chain.cuh:pow_inv), the wrapper's choice
 between that chain and square-and-multiply, and the carry-flag PTX forms
 of the Montgomery product and squaring the ladder runs on the card.
 
@@ -50,10 +50,11 @@ def _no_aot(monkeypatch):
 
 
 def source() -> str:
-    """field.cu and the header that holds its carry-flag products
-    (ntt_passes.cuh, which H8 includes too)."""
+    """field.cu, the header that holds its power chains (pow_chain.cuh,
+    which air.cu includes too) and the one that holds its carry-flag
+    products (ntt_passes.cuh, which H8 includes too)."""
     text = ""
-    for name in ("field.cu", "ntt_passes.cuh"):
+    for name in ("field.cu", "pow_chain.cuh", "ntt_passes.cuh"):
         with open(os.path.join(os.path.dirname(FIELD_CU), name)) as f:
             text += f.read()
     return text
@@ -94,7 +95,7 @@ def test_inv_chain_plain_matches_jax_inv(seed):
 
 
 def pow_inv_steps(text: str) -> list:
-    """The steps (out, a, b) of csrc/field.cu:pow_inv, read from its body:
+    """The steps (out, a, b) of csrc/pow_chain.cuh:pow_inv, read from its body:
     mont_sqr_chain(a, r), mont_mul_chain(a, b, r), sqr_run(a, k, r) and
     one level of counted for loops."""
     start = text.index("void pow_inv(")

@@ -90,6 +90,16 @@ builds its kernels, and prints one JSON line:
   steady prove's wall seconds and, under torch.profiler, its device busy
   milliseconds and the device milliseconds and launches of its top
   kernels;
+* ``air_graphs``: the three graphs that H10-H12 replace, on random
+  inputs at the paths' shapes (the sign's (1, 2, 8, 4096) quotients and
+  combination, the batch of 64's, the 2^20 prove's combination (8, 2^24)
+  with C = R = 1, and a verify's K = 128 points): by the glue the port
+  ran before them (written out here over the tree's ``field/ops.py``, the
+  lines of the parent's parallel/batch.py and protocols/fast_stark.py)
+  and, where the tree has them, by the kernels; each route's ms per call
+  as for ``ops_ms``, device microseconds per call (all its kernels) and
+  the port's launches per call.  Both routes give the same values
+  (checked);
 * the card's name and power limit (nvidia-smi).
 
 ``--part sharded`` prints only ``dist_ntt`` and ``sharded_prove`` (with
@@ -114,7 +124,8 @@ import sys
 import time
 
 ALPHA_INV = 180331931428153586757283157844700080811
-WRAPPERS = ("mont_mul", "add_mod", "sub_mod", "mont_pow", "rescue_permutation", "ntt", "ntt_tiled")
+WRAPPERS = ("mont_mul", "add_mod", "sub_mod", "mont_pow", "rescue_permutation", "ntt", "ntt_tiled",
+            "fri_fold_batched", "rescue_quotients", "combination", "verify_core")
 
 
 def ms_per_call(fn, iters: int, runs: int = 5) -> float:
@@ -581,6 +592,131 @@ def sharded_prove(dev) -> dict:
             "by_kernel": {k: {"launches": c, "device_ms": us / 1e3} for k, (c, us) in top}}
 
 
+def glue_quotients(F, RP, trace, interp, inv_bz, inv_tz, tables, shift):
+    """The boundary and transition quotients as the port ran them before
+    H10 (parallel/batch.py:pipeline): a rolled copy of the trace, then
+    H0/H1 launches over the Rescue AIR's glue."""
+    import torch
+
+    c1, c2, mds, mds_inv = tables
+    nxt = torch.roll(trace, -shift, dims=-1)
+    bq = F.mont_mul(F.sub(trace, interp), inv_bz)
+    return bq, F.mont_mul(RP._rescue_air_kernel(trace, nxt, c1, c2, mds, mds_inv), inv_tz)
+
+
+def glue_batch_combination(F, rand, tq, bq, tq_shift, bq_shift, weights):
+    """The batch core's combination before H11 (parallel/batch.py:
+    combination): the shifted terms, a stack of every term, weighted_sum."""
+    import torch
+
+    tq_t, bq_t = tq.movedim(1, 0), bq.movedim(1, 0)
+    sh_tq = F.mont_mul(tq_shift[:, None], tq_t)
+    sh_bq = F.mont_mul(bq_shift[:, None], bq_t)
+    terms = torch.cat([
+        rand[None],
+        torch.stack([tq_t, sh_tq], dim=1).reshape((-1,) + tq_t.shape[1:]),
+        torch.stack([bq_t, sh_bq], dim=1).reshape((-1,) + bq_t.shape[1:]),
+    ])
+    w_lead = weights.movedim(-3, 0)
+    if w_lead.dim() < terms.dim():
+        w_lead = w_lead[:, None]
+    return F.weighted_sum(terms, w_lead)
+
+
+def glue_combination_core(F, rand, tq, bq, tq_shift, bq_shift, weights):
+    """FastStark's combination before H11 (protocols/fast_stark.py:
+    _combination_core): a product and an add a term, a stack of the terms
+    and their sum."""
+    import torch
+
+    terms, idx = [F.mont_mul(rand, weights[0])], 1
+    for q, shift in ((tq, tq_shift), (bq, bq_shift)):
+        for s in range(q.shape[0]):
+            ws = F.add(weights[idx], F.mont_mul(weights[idx + 1], shift[s]))
+            terms.append(F.mont_mul(q[s], ws))
+            idx += 2
+    return F.field_sum(torch.stack(terms))
+
+
+def air_graphs(dev, scheme, pk) -> dict:
+    """``air_graphs`` of the module docstring."""
+    import torch
+
+    from stark_anatomy_tpu_torch.field import kernels as K
+    from stark_anatomy_tpu_torch.field import ops as F
+    from stark_anatomy_tpu_torch.models import rescue_prime as RP
+    from stark_anatomy_tpu_torch.protocols import fast_stark as FS
+
+    stark = scheme.stark
+    N, E = stark.fri_domain_length, stark.expansion_factor
+    gen = torch.Generator(device=dev).manual_seed(2020)
+
+    def codeword(*shape):
+        x = torch.randint(0, 1 << 16, shape, generator=gen, device=dev, dtype=torch.int32)
+        x[..., 7, :] &= 0x3FFF
+        return x
+
+    def measure(fn, iters):
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        launches = sum(K.LAUNCHES.values())
+        return {"ms": ms_per_call(fn, iters), "device_us": device_us_per_call(fn, max(iters // 4, 1)),
+                "launches": launches}
+
+    def same(a, b):
+        a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), "the glue and the kernel disagree"
+
+    def both(glue, kernel, iters):
+        row = {"glue": measure(glue, iters), "kernel": None}
+        if kernel is not None:
+            same(glue(), kernel())
+            row["kernel"] = measure(kernel, iters)
+        return row
+
+    has = hasattr(K, "rescue_quotients")
+    tables = RP.rescue_air_tables(stark)
+    inv_tz = scheme.transition_zerofier.inv_codeword
+    out = {}
+    for B in (1, 64):
+        trace, interp, inv_bz = (codeword(B, 2, 8, N) for _ in range(3))
+        out[f"quotients ({B}, 2, 8, {N})"] = both(
+            lambda: glue_quotients(F, RP, trace, interp, inv_bz, inv_tz, tables, E),
+            (lambda: K.rescue_quotients(trace, interp, inv_bz, inv_tz, tables, E)) if has else None,
+            50 if B == 1 else 10)
+        args = (codeword(B, 8, N), codeword(B, 2, 8, N), codeword(B, 2, 8, N), codeword(2, 8, N),
+                codeword(2, 8, N), codeword(B, 9, 8, 1))
+        out[f"combination ({B}, 8, {N})"] = both(
+            lambda: glue_batch_combination(F, *args), (lambda: K.combination(*args)) if has else None,
+            50 if B == 1 else 10)
+    n = 1 << 24
+    args = (codeword(8, n), codeword(1, 8, n), codeword(1, 8, n), codeword(1, 8, n), codeword(1, 8, n),
+            codeword(5, 8, 1))
+    out[f"combination (8, {n}) C = R = 1"] = both(
+        lambda: glue_combination_core(F, *args), (lambda: K.combination(*args)) if has else None, 3)
+    del args
+    torch.cuda.empty_cache()
+    air = scheme._air()
+    boundary = scheme.rp.boundary_constraints(pk)
+    max_degree = stark.max_degree(air)
+    tq_sh = tuple(max_degree - b for b in stark.transition_quotient_degree_bounds(air))
+    bq_sh = tuple(max_degree - b for b in stark.boundary_quotient_degree_bounds(
+        stark.randomized_trace_length, boundary))
+    Kq = 128
+    vals = codeword(8, 8 * Kq)
+    bz, ip = stark._stack_coeffs(stark.boundary_zerofiers(boundary)), stark._stack_coeffs(
+        stark.boundary_interpolants(boundary))
+    w = codeword(9, 8, 1)
+    idx = torch.randint(0, N, (Kq,), generator=gen, device=dev)
+    evaluator = RP.make_index_air_evaluator(stark)
+    out[f"verify K = {Kq}, shifts {tq_sh} {bq_sh}, D = {bz.shape[-1]}, {ip.shape[-1]}"] = both(
+        lambda: FS._verify_core(vals, bz, ip, w, idx, evaluator, 2, Kq, tq_sh, bq_sh),
+        (lambda: K.verify_core(vals, bz, ip, w, idx, evaluator.rescue_tables, tq_sh, bq_sh)) if has else None,
+        20)
+    return out
+
+
 def median_s(fn, runs: int = 5) -> float:
     import torch
 
@@ -679,6 +815,7 @@ def main() -> int:
     sign_kernel_launches = dict(K.LAUNCHES)
     by_caller["verify"] = launches_by_caller(K, pkg, lambda: scheme.verify(pk, doc, sig))
     sign_device_launches, sign_busy_share = device_profile(lambda: scheme.sign(sk, doc))
+    graphs = air_graphs(dev, scheme, pk)
     shapes = kernel_shapes(dev)
     large = large_ntt(dev)
     prove = mimc_prove(dev)
@@ -692,7 +829,7 @@ def main() -> int:
         "host_tree4096_ms": host_tree4096_ms,
         "sign_kernel_launches": sign_kernel_launches, "launches_by_caller": by_caller,
         "sign_device_launches": sign_device_launches, "sign_busy_share": sign_busy_share,
-        "kernel_shapes": shapes, "large_ntt": large, "mimc_prove": prove,
+        "air_graphs": graphs, "kernel_shapes": shapes, "large_ntt": large, "mimc_prove": prove,
         "dist_ntt": dist, "sharded_prove": sharded,
     }))
     return 0
