@@ -239,12 +239,19 @@ def prove_chain(mimc: MiMC, stark: FastStark, input_element: FieldElement, tz=No
                 urandom=os.urandom):
     """Compute the chain and prove it.  Returns (output_element, proof,
     transition_zerofier).  ``urandom`` is the prover's entropy (a seeded
-    stand-in gives reproducible bytes)."""
+    stand-in gives reproducible bytes).  The ``trace_gen`` phase has two
+    parts on ``stark.timer``: ``trace_gen.chain`` (N2 on the host) and
+    ``trace_gen.upload`` (the pageable copy, the unpack on the card and
+    the wait for it)."""
     if tz is None:
         tz = stark.preprocess()
-    with stark.timer.phase("trace_gen"):
-        cols, output_value = mimc.trace_columns_with_output(input_element.value)
-        device_sync(cols.device)
+    timer = stark.timer
+    with timer.phase("trace_gen"):
+        with timer.phase("trace_gen.chain"):
+            words, output_value = mimc.trace_words_with_output(input_element.value)
+        with timer.phase("trace_gen.upload"):
+            cols = mimc.columns_from_words(words)
+            device_sync(cols.device)
     output_element = FieldElement(output_value, mimc.field)
     proof = prove_columns(mimc, stark, input_element, output_element, cols, tz, urandom)
     return output_element, proof, tz

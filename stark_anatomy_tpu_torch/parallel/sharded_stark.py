@@ -214,7 +214,7 @@ class ShardedFastStark(FastStark):
 
     def _fri(self, combo: Sharded, proof_stream: ProofStream) -> List[int]:
         """FRI on the pair blocks, through the hooks this class installs."""
-        return self.fri.prove(Paired.of(combo), proof_stream)
+        return self.fri.prove(Paired.of(combo), proof_stream, self.timer)
 
     def _sync(self) -> None:
         self.mesh.synchronize()

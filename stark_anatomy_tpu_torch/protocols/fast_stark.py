@@ -101,8 +101,9 @@ class FastStark(StarkParams):
         self._xpow_cache: Dict[int, torch.Tensor] = {}
         self._x_lde_arr = None
         self._air_fn_cache: Dict[tuple, object] = {}
-        # per-phase wall-clock seconds under the JAX package's phase names;
-        # read ``self.timer.report()`` after prove (utils/profiling.py)
+        # per-phase wall-clock seconds under the JAX package's phase names,
+        # and the parts of fri and trace_gen; read ``self.timer.report()``
+        # after prove (utils/profiling.py)
         self.timer = PhaseTimer()
 
     # ------------------------------------------------------------------
@@ -247,9 +248,11 @@ class FastStark(StarkParams):
     def _fri(self, combo, proof_stream: ProofStream) -> List[int]:
         """FRI over the combination codeword: on the card where its
         commitment is (the JAX package's fused fold and commit), else on
-        the host; the transcripts are byte-identical."""
+        the host; the transcripts are byte-identical.  The device prover
+        times its parts on ``self.timer`` as it is at the call (a caller
+        may have replaced the timer since construction)."""
         if use_device_commit(self.fri_domain_length, combo.device):
-            return self.fri.prove(combo, proof_stream)
+            return self.fri.prove(combo, proof_stream, self.timer)
         return self.fri.prove_host(ints_from_device(combo), proof_stream)
 
     def _sync(self) -> None:

@@ -41,8 +41,11 @@ from ..ops.domain import power_table
 from ..poly.host_ntt import intt_ints
 from ..transcript.proof_stream import ProofStream
 from ..utils.convert import gather_rows, ints_from_device
+from ..utils.profiling import PhaseTimer
 
 _TWO_INV = pow(2, P - 2, P)
+# the timer of a prove that is handed none: no one reads it
+_UNREAD = PhaseTimer()
 
 
 class Fri:
@@ -166,7 +169,8 @@ class Fri:
             for i in range(half)
         ]
 
-    def commit(self, codeword: torch.Tensor, proof_stream: ProofStream):
+    def commit(self, codeword: torch.Tensor, proof_stream: ProofStream,
+               timer: PhaseTimer = _UNREAD):
         """Fold rounds of a Montgomery codeword (NLIMBS, N); returns (layers,
         trees), each layer a DeviceRows or, on the host tail, a list of
         canonical ints.  Mirrors the reference's commit loop (fri.py:56-96):
@@ -175,57 +179,74 @@ class Fri:
         folded codeword's tree; below HOST_TAIL_MAX the current layer is
         copied once and the rest folds host ints.  The last layer is
         committed and sent in the clear.  Commitments use paired leaves:
-        leaf i covers (c[i], c[i + n/2]), the fold's pair."""
-        codeword = codeword.contiguous()
-        u = self.initial_table(codeword)
+        leaf i covers (c[i], c[i + n/2]), the fold's pair.
+
+        ``timer`` gets the parts of the ``fri`` phase: ``fri.rounds``, the
+        first layer's commit and every round on the card (H6, H4, the
+        root's copy and the draw); ``fri.leave``, the copy and decode of
+        the layer the card hands over (where the host tail starts, with
+        its inverse-domain table, or else the last layer); and, a host
+        round each, ``fri.host_fold`` (the fold and the table's squaring)
+        and ``fri.host_commit`` (the tree by N1, its root and the next
+        draw)."""
         layers, trees = [], []
         num = self.num_rounds()
-        host_ints: Optional[List[int]] = None   # set once on the host tail
-        host_u: Optional[List[int]] = None
 
-        rows, tree = self.commit_codeword(codeword)
-        for r in range(num):
+        def record(rows, tree, r: int) -> Optional[int]:
+            # send layer r's root; the challenge of the next fold, or None
+            # after the last layer
             proof_stream.push(tree.root)
             layers.append(rows)
             trees.append(tree)
             if r == num - 1:
-                break
-            alpha = self.field.sample(proof_stream.prover_fiat_shamir()).value
-            half = self.domain_length >> (r + 1)
-            if host_ints is None and half > self.HOST_TAIL_MAX:
+                return None
+            return self.field.sample(proof_stream.prover_fiat_shamir()).value
+
+        with timer.phase("fri.rounds"):
+            codeword = codeword.contiguous()
+            u = self.initial_table(codeword)
+            rows, tree = self.commit_codeword(codeword)
+            r = 0
+            alpha = record(rows, tree, r)
+            while alpha is not None and self.domain_length >> (r + 1) > self.HOST_TAIL_MAX:
                 codeword, u, rows, tree = self.fold_layer(codeword, u, alpha)
-            else:
-                if host_ints is None:
-                    # leave the card: copy the current layer and its
-                    # inverse-domain table once
-                    host_ints = gather_rows(rows, range(2 * half))
-                    host_u = self.host_table(u)
+                r += 1
+                alpha = record(rows, tree, r)
+        with timer.phase("fri.leave"):
+            host_ints = gather_rows(rows, range(self.domain_length >> r))
+            host_u = None if alpha is None else self.host_table(u)
+        while alpha is not None:
+            half = self.domain_length >> (r + 1)
+            with timer.phase("fri.host_fold"):
                 host_ints = self._fold_ints(host_ints, host_u, alpha)
                 host_u = [v * v % P for v in host_u[: half // 2]]
-                rows, tree = host_ints, self._host_tree(host_ints)
-
-        last = layers[-1]
-        proof_stream.push(list(last) if isinstance(last, list)
-                          else gather_rows(last, range(self._layer_len(last))))
+            with timer.phase("fri.host_commit"):
+                r += 1
+                alpha = record(host_ints, self._host_tree(host_ints), r)
+        proof_stream.push(host_ints)
         return layers, trees
 
-    def prove(self, codeword: torch.Tensor, proof_stream: ProofStream) -> List[int]:
+    def prove(self, codeword: torch.Tensor, proof_stream: ProofStream,
+              timer: PhaseTimer = _UNREAD) -> List[int]:
         """The device prover over a Montgomery codeword (NLIMBS, N); the
-        transcript of ``prove_host`` on the same values."""
+        transcript of ``prove_host`` on the same values.  ``timer`` gets the
+        parts of the ``fri`` phase (``commit``), and ``fri.queries``: the
+        index draw and every layer's openings."""
         assert self.domain_length == codeword.shape[-1], (
             "initial codeword length does not match FRI domain length"
         )
-        layers, trees = self.commit(codeword, proof_stream)
-        top_level_indices = self.sample_indices(
-            proof_stream.prover_fiat_shamir(),
-            self._layer_len(layers[0]) // 2,
-            self._layer_len(layers[-1]),
-            self.num_colinearity_tests,
-        )
-        indices = list(top_level_indices)
-        for i in range(len(layers) - 1):
-            indices = [idx % (self._layer_len(layers[i]) // 2) for idx in indices]
-            self.query(layers[i], trees[i], indices, proof_stream)
+        layers, trees = self.commit(codeword, proof_stream, timer)
+        with timer.phase("fri.queries"):
+            top_level_indices = self.sample_indices(
+                proof_stream.prover_fiat_shamir(),
+                self._layer_len(layers[0]) // 2,
+                self._layer_len(layers[-1]),
+                self.num_colinearity_tests,
+            )
+            indices = list(top_level_indices)
+            for i in range(len(layers) - 1):
+                indices = [idx % (self._layer_len(layers[i]) // 2) for idx in indices]
+                self.query(layers[i], trees[i], indices, proof_stream)
         return top_level_indices
 
     def query(

@@ -125,10 +125,3 @@ def test_prove_records_the_jax_phase_names(setup, proofs):
     assert all(ts.timer.counts[name] >= 1 for name in PROVE_PHASES)
     assert "openings" in ts.timer.report()
 
-
-def test_device_trace_writes_a_profiler_trace(tmp_path):
-    from stark_anatomy_tpu_torch.utils.profiling import device_trace
-
-    with device_trace(str(tmp_path)):
-        TFS.F.mont_mul(device_from_ints([3], "cpu"), device_from_ints([5], "cpu"))
-    assert any(f.endswith(".json") for f in __import__("os").listdir(tmp_path))

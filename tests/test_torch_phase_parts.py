@@ -1,0 +1,142 @@
+"""Named parts of a prove phase (utils/profiling.py:PhaseTimer).
+
+A name ``"<phase>.<part>"`` is a part of ``<phase>``: it is timed through
+the same ``phase`` call, kept out of ``totals`` and ``counts``, and listed
+under its phase by ``report``.  A device prove of the MiMC chain on the CPU
+(``STARK_TPU_DEVICE_HASH=1``, so the device FRI runs through the plain
+versions of its kernels) records the five parts of ``fri`` and the two of
+``trace_gen``, each inside its phase, in the order the prover runs them,
+and the parts change no byte of the proof.
+"""
+
+import contextlib
+import hashlib
+import time
+
+import pytest
+import torch
+
+from stark_anatomy_tpu_torch.field.scalar import Field
+from stark_anatomy_tpu_torch.models import mimc as TM
+from stark_anatomy_tpu_torch.protocols.fri import Fri
+from stark_anatomy_tpu_torch.utils.profiling import PhaseTimer
+
+torch.set_num_threads(1)
+
+PROVE_PHASES = {"trace_gen", "trace_lde", "boundary_quotients", "commit_bq", "air_quotients",
+                "randomizer_poly", "commit_randomizer", "combination", "fri", "openings"}
+FRI_PARTS = {"fri.rounds", "fri.leave", "fri.host_fold", "fri.host_commit", "fri.queries"}
+TRACE_PARTS = {"trace_gen.chain", "trace_gen.upload"}
+# make_stark(63, 4, 4, 8): a FRI domain of 1024 and 6 rounds (layers of
+# 1024 down to 32 elements).  HOST_TAIL_MAX -> the host rounds: 8, none
+# (every fold on the card); 64, the folds to 64 and 32; 2^14, all five
+TAILS = [(8, 0), (64, 2), (1 << 14, 5)]
+
+
+class SpanRecorder(PhaseTimer):
+    """A PhaseTimer that also keeps each phase and part as (name, start,
+    end), as a tracing subclass does."""
+
+    def __init__(self):
+        super().__init__()
+        self.spans = []
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        t0 = time.perf_counter()
+        try:
+            with super().phase(name):
+                yield
+        finally:
+            self.spans.append((name, t0, time.perf_counter()))
+
+
+def det_urandom(seed: bytes):
+    state = {"ctr": 0}
+
+    def rand(n: int) -> bytes:
+        out = b""
+        while len(out) < n:
+            out += hashlib.blake2b(seed + state["ctr"].to_bytes(8, "big")).digest()
+            state["ctr"] += 1
+        return out[:n]
+
+    return rand
+
+
+def device_prove(monkeypatch, tail, timer):
+    """A seeded device prove of the 63-step chain with ``timer`` on the
+    stark; the proof's bytes."""
+    monkeypatch.setenv("STARK_TPU_DEVICE_HASH", "1")
+    monkeypatch.setattr(Fri, "HOST_TAIL_MAX", tail)
+    mimc, stark = TM.make_stark(63, 4, 4, 8, device="cpu")
+    assert (stark.fri.domain_length, stark.fri.num_rounds()) == (1024, 6)
+    stark.timer = timer
+    x = Field.main().sample(b"phase parts")
+    _, proof, _ = TM.prove_chain(mimc, stark, x, urandom=det_urandom(b"phase parts"))
+    return proof
+
+
+@pytest.mark.parametrize("tail,host_rounds", TAILS)
+def test_a_device_prove_records_the_parts_of_fri_and_trace_gen(monkeypatch, tail, host_rounds):
+    timer = PhaseTimer()
+    device_prove(monkeypatch, tail, timer)
+    assert set(timer.totals) == PROVE_PHASES
+    assert set(timer.counts) == PROVE_PHASES
+    want = {"fri.rounds": 1, "fri.leave": 1, "fri.queries": 1,
+            "trace_gen.chain": 1, "trace_gen.upload": 1}
+    if host_rounds:
+        want.update({"fri.host_fold": host_rounds, "fri.host_commit": host_rounds})
+    assert dict(timer.part_counts) == want
+    assert set(timer.parts) == set(want) <= FRI_PARTS | TRACE_PARTS
+    for phase in ("fri", "trace_gen"):
+        inside = sum(v for k, v in timer.parts.items() if k.startswith(phase + "."))
+        assert 0 < inside <= timer.totals[phase]
+
+
+def test_parts_lie_inside_their_phase_in_order_and_change_no_byte(monkeypatch):
+    recorder = SpanRecorder()
+    proof = device_prove(monkeypatch, 64, recorder)
+    assert proof == device_prove(monkeypatch, 64, PhaseTimer())
+    spans = sorted(recorder.spans, key=lambda s: s[1])
+    phases = {name: (a, b) for name, a, b in spans if "." not in name}
+    for name, a, b in spans:
+        if "." in name:
+            lo, hi = phases[name.partition(".")[0]]
+            assert lo <= a <= b <= hi, name
+    fri = [(name, a, b) for name, a, b in spans if name.startswith("fri.")]
+    assert [name for name, _, _ in fri] == (["fri.rounds", "fri.leave"]
+                                            + ["fri.host_fold", "fri.host_commit"] * 2
+                                            + ["fri.queries"])
+    assert all(b <= a2 for (_, _, b), (_, a2, _) in zip(fri, fri[1:]))
+    assert [name for name, _, _ in spans if name.startswith("trace_gen.")] == [
+        "trace_gen.chain", "trace_gen.upload"]
+
+
+def test_parts_stay_out_of_the_phase_table():
+    timer = PhaseTimer()
+    for _ in range(2):
+        with timer.phase("fri"):
+            with timer.phase("fri.rounds"):
+                pass
+            with timer.phase("fri.leave"):
+                pass
+    assert set(timer.totals) == set(timer.counts) == {"fri"}
+    assert timer.counts["fri"] == 2
+    assert dict(timer.part_counts) == {"fri.rounds": 2, "fri.leave": 2}
+    assert sum(timer.parts.values()) <= timer.totals["fri"]
+
+
+def test_report_lists_each_part_under_its_phase_with_its_share():
+    timer = PhaseTimer()
+    timer.totals.update({"fri": 0.4, "trace_gen": 0.1, "openings": 0.2})
+    timer.counts.update({"fri": 1, "trace_gen": 1, "openings": 1})
+    timer.parts.update({"fri.rounds": 0.1, "fri.leave": 0.2, "trace_gen.chain": 0.05})
+    timer.part_counts.update({"fri.rounds": 1, "fri.leave": 1, "trace_gen.chain": 1})
+    lines = timer.report().splitlines()
+    assert [line.split()[0] for line in lines] == [
+        "fri", "fri.leave", "fri.rounds", "openings", "trace_gen", "trace_gen.chain"]
+    assert [line.startswith("  ") for line in lines] == [False, True, True, False, False, True]
+    assert lines[1].split()[1:] == ["200.00", "ms", "x1", "50.0%", "of", "fri"]
+    assert lines[2].split()[-3] == "25.0%"
+    assert lines[5].split()[-3] == "50.0%"
