@@ -65,7 +65,8 @@ Phases (each prints its wall seconds):
    and 1025 counters, each as an odd and an even count), at 2^16 + 1
    (whose deepest round must be 4 or more) and at the 2^20 path's 2^22
    (a seed whose round 0 rejects candidates), H6 ``fri_fold`` at the top round's
-   h = 2^23; H4 at every FRI layer of that path, 2^24 down to 2^15,
+   h = 2^23 and at the path's small rounds, h = 2^14 down to 2^9; H4 at
+   every FRI layer of that path, 2^24 down to its last, 2^9,
    against its plain version on the card and N1's root, with its device
    time per commit and bound; H3's persistent path at the four-step's
    inner shapes (4096, 8, 4096) and (2048, 8, 2048), with the twiddle
@@ -237,7 +238,8 @@ NTT_SPOT_ROWS = 16                          # rows of an inner launch held again
 # LDE is H8's record
 TILED_CASES = (((), 24, False, True), ((), 24, True, True), ((), 22, True, False),
                ((3,), 14, False, True), ((3,), 14, True, True))
-FRI_TREE_LOGS = range(15, 25)               # the FRI layers of that path the card commits: 2^24 down to 2^15
+FRI_TREE_LOGS = range(9, 25)                # the FRI layers of that path the card commits: 2^24 down to 2^9
+FOLD_SMALL_LOGS = range(9, 15)              # its small rounds' h (a fold of 2h elements), below the top rounds' 2^15
 TREE_PATH = 1 << 24                         # its largest tree: the quotients', FRI's first layer
 FOLD_BYTES = 176    # per folded element: c_i, c_{i+h}, u_i read; folded, canon, u_i^2 / 2 written
 # batch signing: the JAX package's BASELINE config 5 signs a batch of 64
@@ -562,12 +564,11 @@ def profile_sign(sign) -> None:
 HOST_SPANS = ("trace_batch", "pipeline", "from_limbs_paired", "combination",
               "_fri_batch", "open_multi", "hash", "max_degree", "sample", "device_from_ints")
 # the steps of a large-trace prove: N2's chain, the boundary tables, the
-# device FRI's rounds, its copy of the host tail and the host folds and
-# trees, the query rounds, the openings' gathers, the transcript
+# device FRI's rounds and its copy of the last layer, the query rounds,
+# the openings' gathers, the transcript
 LARGE_SPANS = ("chain_bytes", "columns_from_words", "_boundary_tables", "_trace_lde",
                "coset_evaluate", "_x_lde_pow", "device_sync", "commit", "fri_fold",
-               "merkle_paired", "gather_rows", "_fold_ints", "_host_tree", "query",
-               "sample_indices", "open_multi", "serialize")
+               "merkle_paired", "gather_rows", "query", "sample_indices", "open_multi", "serialize")
 
 
 def host_profile(label: str, fn, spans) -> None:
@@ -857,7 +858,6 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
     from stark_anatomy_tpu_torch.ops import ntt as NTT
     from stark_anatomy_tpu_torch.ops.domain import DOMAINS, coset_table
     from stark_anatomy_tpu_torch.parallel.pipeline_prover import PipelinedMiMCProver
-    from stark_anatomy_tpu_torch.protocols.fri import Fri
     from stark_anatomy_tpu_torch.utils.convert import canonical_np, device_from_ints, ints_from_device
 
     def record(name, ms, plain_ms, bound):
@@ -909,6 +909,16 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
     for label, g, w in zip(("folded", "canonical", "u^2"), got, want):
         compare("fri_fold", f"h=2^{FOLD_HALF.bit_length() - 1} {label}", g, w)
     del got, want
+    # the small rounds, which the card folds down to the path's last layer
+    for log_h in FOLD_SMALL_LOGS:
+        h = 1 << log_h
+        small_cw, small_u = random_codeword((8, 2 * h), 3060 + log_h, dev), random_codeword((8, h), 3070 + log_h, dev)
+        got = K.fri_fold(small_cw, small_u, alpha)
+        torch.cuda.synchronize()
+        want = K.fri_fold_plain(small_cw, small_u, alpha)
+        for label, g, w in zip(("folded", "canonical", "u^2"), got, want):
+            compare("fri_fold", f"h=2^{log_h} {label}", g, w)
+        del small_cw, small_u, got, want
     ms = time_launches(lambda: K.fri_fold(cw, u, alpha), 20)
     dev_us = profile_kernel("fri_fold", lambda: K.fri_fold(cw, u, alpha), 10)
     plain_ms = time_launches(lambda: K.fri_fold_plain(cw, u, alpha), 1, warm=0)
@@ -919,7 +929,7 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
           f"{plain_ms:.3f} ms, bound {bound[0]:.6f} ms ({bound[1]}: {FOLD_BYTES} bytes per element)")
     del cw, u
     # H4 at every FRI layer the path commits on the card (2^24, its largest
-    # codeword, down to 2^15): the flat tree against the plain version on
+    # codeword, down to 2^9): the flat tree against the plain version on
     # the card, the root against N1's tree of the same canonical rows; the
     # largest gives its record, in place of phase 1's
     for log_n in FRI_TREE_LOGS:
@@ -1101,9 +1111,9 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
     # the card against the CPU with every large branch forced
     x_small = FieldElement(rng.randrange(P), field)
     proofs = {}
-    saved = (NTT.NTT_MAX, NTT.HOST_ZEROFIER_MAX, Fri.HOST_TAIL_MAX)
+    saved = (NTT.NTT_MAX, NTT.HOST_ZEROFIER_MAX)
     os.environ["STARK_TPU_DEVICE_HASH"] = "1"
-    NTT.NTT_MAX, NTT.HOST_ZEROFIER_MAX, Fri.HOST_TAIL_MAX = 8, 1, 8
+    NTT.NTT_MAX, NTT.HOST_ZEROFIER_MAX = 8, 1
     try:
         for label, device in (("card", dev), ("cpu", "cpu")):
             mimc, stark = MM.make_stark(15, 4, 4, 8, device=device)
@@ -1113,7 +1123,7 @@ def large_path(dev, smi, records, worst_err, compare) -> None:
             proofs[label] = (mimc, stark, tz, out, proof)
     finally:
         del os.environ["STARK_TPU_DEVICE_HASH"]
-        NTT.NTT_MAX, NTT.HOST_ZEROFIER_MAX, Fri.HOST_TAIL_MAX = saved
+        NTT.NTT_MAX, NTT.HOST_ZEROFIER_MAX = saved
     (cm, cs, ctz, cout, cproof), (hm, hs, htz, hout, hproof) = proofs["card"], proofs["cpu"]
     assert cproof == hproof and ctz.root == htz.root, "the card and the CPU proved different bytes"
     assert MM.verify_chain(cm, cs, x_small, hout, hproof, ctz.root), "the card rejected the CPU's proof"

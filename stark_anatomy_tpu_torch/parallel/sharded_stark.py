@@ -23,8 +23,9 @@ class overrides them:
 * FRI runs on the pair blocks: H6 folds block k with its slice of the
   inverse-domain table into shard k of the next layer, whose pair
   blocks come by the next exchange and are committed where they lie (a
-  device forest at every size, as one device's fused fold and commit);
-  below ``Fri.HOST_TAIL_MAX`` the host tail gathers, as on one device.
+  device forest at every size, as one device's fused fold and commit),
+  down to the last layer, whose pair blocks must hold an element each
+  (a last layer of 2S elements or more).
 
 Between the LDE and the commitment the whole codeword never exists as
 one tensor, and every transcript byte is the one-device prover's: the
@@ -49,7 +50,6 @@ from ..ops import ntt as NTT
 from ..ops.domain import DOMAINS, mont_const, power_table
 from ..protocols.fast_stark import FastStark, TransitionZerofier
 from ..transcript.proof_stream import ProofStream
-from ..utils.convert import ints_from_device
 from .mesh import Mesh, Sharded, pointwise
 from .ntt_dist import dist_ntt_ok, make_distributed_ntt
 
@@ -116,7 +116,6 @@ class ShardedFastStark(FastStark):
         fri.commit_codeword = self._commit_rows
         fri.initial_table = self._fri_initial_table
         fri.fold_layer = self._fri_fold_layer
-        fri.host_table = self._fri_host_table
 
     @property
     def num_shards(self) -> int:
@@ -295,12 +294,6 @@ class ShardedFastStark(FastStark):
         # fused fold and commit does at every size
         rows, tree = self._commit_many(layer, on_device=True)[0]
         return layer, u_next, rows, tree
-
-    def _fri_host_table(self, u: Dict[int, torch.Tensor]) -> List[int]:
-        """The round's whole table as host ints, where the host tail starts."""
-        self.routes["fri_host_tail"] += 1
-        blocks = self.mesh.merge({k: ints_from_device(t) for k, t in u.items()})
-        return [v for k in sorted(blocks) for v in blocks[k]]
 
     # ------------------------------------------------------------------
     def prove(self, trace, transition_constraints, boundary,

@@ -11,12 +11,13 @@ checks.  Two provers give the same transcript:
   launch of H6 (field/kernels.py:fri_fold: the fold, the canonical form of
   the folded codeword and the next round's inverse-domain table) and the
   H4 passes of its tree, and only the 32-byte root is copied to the host.
-  Once a folded codeword has HOST_TAIL_MAX elements or fewer, the
-  remaining rounds fold host ints.  The commit and the fold go through
-  hooks (``commit_codeword``, ``fold_layer``, ...), which the sharded
-  prover replaces by shard-local ones.  Rounds are sized exactly: the JAX
+  Every round runs so, down to the last layer, which alone is copied and
+  sent in the clear.  The commit and the fold go through hooks
+  (``commit_codeword``, ``fold_layer``, ...), which the sharded prover
+  replaces by shard-local ones.  Rounds are sized exactly: the JAX
   package's shape-family padding (``_family_width``) only spared XLA
-  compiles, and gives the same transcript;
+  compiles, and gives the same transcript, as does its host tail
+  (``HOST_TAIL_MAX``: below it the remaining rounds fold host ints);
 * ``prove_host`` folds canonical ints on the host and hashes with N1.
 
 Deliberate deviations (documented in DEVIATIONS.md): index-sampling counter
@@ -40,7 +41,7 @@ from ..field.scalar import Field, P
 from ..ops.domain import power_table
 from ..poly.host_ntt import intt_ints
 from ..transcript.proof_stream import ProofStream
-from ..utils.convert import gather_rows, ints_from_device
+from ..utils.convert import gather_rows
 from ..utils.profiling import PhaseTimer
 
 _TWO_INV = pow(2, P - 2, P)
@@ -73,18 +74,11 @@ class Fri:
         # shard-local versions.  commit_codeword(codeword) -> (rows, tree)
         # commits the first layer; initial_table(codeword) -> u its
         # inverse-domain table; fold_layer(codeword, u, alpha) -> (codeword,
-        # u, rows, tree) folds a round and commits the result;
-        # host_table(u) -> the table as host ints, where the host tail
-        # starts
+        # u, rows, tree) folds a round and commits the result
         self.commit_codeword = self._commit_codeword_local
         self.initial_table = lambda codeword: self._initial_u(codeword.device)
         self.fold_layer = self._fold_layer_local
-        self.host_table = ints_from_device
         assert self.num_rounds() >= 1, "cannot do FRI with less than one round"
-
-    # once a folded codeword has this many elements or fewer, the prover
-    # leaves the card and folds host ints (the JAX package's HOST_TAIL_MAX)
-    HOST_TAIL_MAX = 1 << 14
 
     # -- round structure (reference: fri.py:22-28) --------------------------
     def num_rounds(self) -> int:
@@ -172,23 +166,19 @@ class Fri:
     def commit(self, codeword: torch.Tensor, proof_stream: ProofStream,
                timer: PhaseTimer = _UNREAD):
         """Fold rounds of a Montgomery codeword (NLIMBS, N); returns (layers,
-        trees), each layer a DeviceRows or, on the host tail, a list of
-        canonical ints.  Mirrors the reference's commit loop (fri.py:56-96):
-        per round, commit the current codeword, draw the challenge, fold.
-        On the card a round is one H6 launch and the H4 passes of the
-        folded codeword's tree; below HOST_TAIL_MAX the current layer is
-        copied once and the rest folds host ints.  The last layer is
-        committed and sent in the clear.  Commitments use paired leaves:
-        leaf i covers (c[i], c[i + n/2]), the fold's pair.
+        trees), each layer the rows its commit gave (a DeviceRows on one
+        device).  Mirrors the reference's commit loop (fri.py:56-96): per
+        round, commit the current codeword, draw the challenge, fold.  A
+        round is one H6 launch and the H4 passes of the folded codeword's
+        tree (a round of each on every shard for the sharded prover), down
+        to the last layer, which alone is copied to the host and sent in
+        the clear.  Commitments use paired leaves: leaf i covers (c[i],
+        c[i + n/2]), the fold's pair.
 
         ``timer`` gets the parts of the ``fri`` phase: ``fri.rounds``, the
-        first layer's commit and every round on the card (H6, H4, the
-        root's copy and the draw); ``fri.leave``, the copy and decode of
-        the layer the card hands over (where the host tail starts, with
-        its inverse-domain table, or else the last layer); and, a host
-        round each, ``fri.host_fold`` (the fold and the table's squaring)
-        and ``fri.host_commit`` (the tree by N1, its root and the next
-        draw)."""
+        first layer's commit and every round (H6, H4, the root's copy and
+        the draw), and ``fri.leave``, the copy and decode of the last
+        layer."""
         layers, trees = [], []
         num = self.num_rounds()
 
@@ -208,22 +198,13 @@ class Fri:
             rows, tree = self.commit_codeword(codeword)
             r = 0
             alpha = record(rows, tree, r)
-            while alpha is not None and self.domain_length >> (r + 1) > self.HOST_TAIL_MAX:
+            while alpha is not None:
                 codeword, u, rows, tree = self.fold_layer(codeword, u, alpha)
                 r += 1
                 alpha = record(rows, tree, r)
         with timer.phase("fri.leave"):
-            host_ints = gather_rows(rows, range(self.domain_length >> r))
-            host_u = None if alpha is None else self.host_table(u)
-        while alpha is not None:
-            half = self.domain_length >> (r + 1)
-            with timer.phase("fri.host_fold"):
-                host_ints = self._fold_ints(host_ints, host_u, alpha)
-                host_u = [v * v % P for v in host_u[: half // 2]]
-            with timer.phase("fri.host_commit"):
-                r += 1
-                alpha = record(host_ints, self._host_tree(host_ints), r)
-        proof_stream.push(host_ints)
+            last = gather_rows(rows, range(self.domain_length >> r))
+        proof_stream.push(last)
         return layers, trees
 
     def prove(self, codeword: torch.Tensor, proof_stream: ProofStream,

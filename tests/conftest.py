@@ -35,6 +35,7 @@ jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running full-parameter tests")
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA card; skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -4,12 +4,12 @@ the JAX package's fused fold and commit, and against the port's host FRI.
 H6 ``fri_fold`` computes one fold round, the folded codeword's canonical
 form and the next round's inverse-domain table; its plain version must
 give the JAX package's _fold_kernel, _square_half and from_mont.  With the
-device commitment forced (STARK_TPU_DEVICE_HASH=1) and HOST_TAIL_MAX
-lowered to 8 (every round on the device path) or 32 (the last rounds on
-the host), ``Fri.prove`` must write the JAX package's fused transcript and
-the port's ``prove_host`` transcript, byte for byte; each package verifies
-the other's.  The CUDA kernel is held against its plain version by
-chip_smoke.py on the card.
+device commitment forced (STARK_TPU_DEVICE_HASH=1), ``Fri.prove`` folds
+every round on the device path, down to the last layer, and must write
+the port's ``prove_host`` transcript and the JAX package's, byte for byte,
+whatever the JAX package's own crossover to its host tail (HOST_TAIL_MAX:
+its default, 8 or 32); each package verifies the other's.  The CUDA kernel
+is held against its plain version by chip_smoke.py on the card.
 """
 
 import random
@@ -72,21 +72,24 @@ def make_fri(cls, n, expansion, tests):
     return cls(FIELD.generator().value, FIELD.primitive_nth_root(n).value, n, expansion, tests)
 
 
-@pytest.mark.parametrize("tail,device_layers", [(8, 6), (32, 4)], ids=["tail8", "tail32"])
-def test_device_fri_transcript_matches_jax_and_host(monkeypatch, tail, device_layers):
-    """Six layers, 512 down to 16 elements: all on the device path with
-    HOST_TAIL_MAX = 8; with 32, the last two fold host ints."""
+@pytest.mark.parametrize("jax_tail", [None, 8, 32], ids=["default", "tail8", "tail32"])
+def test_device_fri_transcript_matches_jax_and_host(monkeypatch, jax_tail):
+    """Six layers, 512 down to 16 elements, all on the port's device path;
+    the JAX package folds on its host from its default crossover (2^14:
+    every fold here), on its device to 16 elements with HOST_TAIL_MAX = 8,
+    and to 64 with 32."""
     n, expansion, tests = 512, 4, 2
     coeffs = [RNG.randrange(P) for _ in range(n // expansion)]
     monkeypatch.setenv("STARK_TPU_DEVICE_HASH", "1")
-    monkeypatch.setattr(JFRI.Fri, "HOST_TAIL_MAX", tail)
-    monkeypatch.setattr(TFRI.Fri, "HOST_TAIL_MAX", tail)
+    if jax_tail is not None:
+        monkeypatch.setattr(JFRI.Fri, "HOST_TAIL_MAX", jax_tail)
     jf, tf = make_fri(JFRI.Fri, n, expansion, tests), make_fri(TFRI.Fri, n, expansion, tests)
 
     codeword = TN.coset_evaluate(device_from_ints(coeffs, "cpu"), tf.offset, n)
     tps = TPS()
     layers, _ = tf.commit(codeword, TPS())
-    assert [type(l) for l in layers] == [DeviceRows] * device_layers + [list] * (6 - device_layers)
+    assert [type(l) for l in layers] == [DeviceRows] * 6
+    assert [len(l) for l in layers] == [n >> r for r in range(6)]
     t_idx = tf.prove(codeword, tps)
 
     jps = JPS()
@@ -105,7 +108,6 @@ def test_device_fri_transcript_matches_jax_and_host(monkeypatch, tail, device_la
 def test_device_fri_rejects_a_high_degree_codeword(monkeypatch):
     n, expansion, tests = 256, 4, 2
     monkeypatch.setenv("STARK_TPU_DEVICE_HASH", "1")
-    monkeypatch.setattr(TFRI.Fri, "HOST_TAIL_MAX", 8)
     tf = make_fri(TFRI.Fri, n, expansion, tests)
     vals = [RNG.randrange(P) for _ in range(n)]               # degree n - 1
     ps = TPS()

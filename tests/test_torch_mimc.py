@@ -29,7 +29,6 @@ from stark_anatomy_tpu_torch.field.limbs import R
 from stark_anatomy_tpu_torch.field.scalar import Field, FieldElement, P
 from stark_anatomy_tpu_torch.models import mimc as TM
 from stark_anatomy_tpu_torch.ops import ntt as TN
-from stark_anatomy_tpu_torch.protocols.fri import Fri as TFri
 from stark_anatomy_tpu_torch.utils.convert import ints_from_device
 
 torch.set_num_threads(1)
@@ -134,8 +133,7 @@ def force(monkeypatch, config, jstark, tstark):
         tstark.bulk_randomizer_threshold = 0
     if config in ("device_fri", "all"):
         monkeypatch.setenv("STARK_TPU_DEVICE_HASH", "1")
-        monkeypatch.setattr(JFri, "HOST_TAIL_MAX", 8)
-        monkeypatch.setattr(TFri, "HOST_TAIL_MAX", 8)
+        monkeypatch.setattr(JFri, "HOST_TAIL_MAX", 8)     # the port folds on the card to the end
     if config == "all":
         monkeypatch.setattr(TN, "NTT_MAX", 8)
 

@@ -4,9 +4,10 @@ A name ``"<phase>.<part>"`` is a part of ``<phase>``: it is timed through
 the same ``phase`` call, kept out of ``totals`` and ``counts``, and listed
 under its phase by ``report``.  A device prove of the MiMC chain on the CPU
 (``STARK_TPU_DEVICE_HASH=1``, so the device FRI runs through the plain
-versions of its kernels) records the five parts of ``fri`` and the two of
-``trace_gen``, each inside its phase, in the order the prover runs them,
-and the parts change no byte of the proof.
+versions of its kernels) records the three parts of ``fri`` (every round
+folds on the card, to the last layer) and the two of ``trace_gen``, each
+inside its phase, in the order the prover runs them, and the parts change
+no byte of the proof.
 """
 
 import contextlib
@@ -16,6 +17,7 @@ import time
 import pytest
 import torch
 
+from stark_anatomy_tpu_torch.commit.device_merkle import DeviceRows
 from stark_anatomy_tpu_torch.field.scalar import Field
 from stark_anatomy_tpu_torch.models import mimc as TM
 from stark_anatomy_tpu_torch.protocols.fri import Fri
@@ -25,12 +27,11 @@ torch.set_num_threads(1)
 
 PROVE_PHASES = {"trace_gen", "trace_lde", "boundary_quotients", "commit_bq", "air_quotients",
                 "randomizer_poly", "commit_randomizer", "combination", "fri", "openings"}
-FRI_PARTS = {"fri.rounds", "fri.leave", "fri.host_fold", "fri.host_commit", "fri.queries"}
+FRI_PARTS = {"fri.rounds", "fri.leave", "fri.queries"}
 TRACE_PARTS = {"trace_gen.chain", "trace_gen.upload"}
-# make_stark(63, 4, 4, 8): a FRI domain of 1024 and 6 rounds (layers of
-# 1024 down to 32 elements).  HOST_TAIL_MAX -> the host rounds: 8, none
-# (every fold on the card); 64, the folds to 64 and 32; 2^14, all five
-TAILS = [(8, 0), (64, 2), (1 << 14, 5)]
+# make_stark(steps, 4, 4, 8): steps -> (the FRI domain, its rounds), the
+# last layer 32 elements
+STEPS = [(15, 512, 5), (63, 1024, 6), (127, 2048, 7), (255, 4096, 8)]
 
 
 class SpanRecorder(PhaseTimer):
@@ -64,29 +65,27 @@ def det_urandom(seed: bytes):
     return rand
 
 
-def device_prove(monkeypatch, tail, timer):
-    """A seeded device prove of the 63-step chain with ``timer`` on the
-    stark; the proof's bytes."""
-    monkeypatch.setenv("STARK_TPU_DEVICE_HASH", "1")
-    monkeypatch.setattr(Fri, "HOST_TAIL_MAX", tail)
-    mimc, stark = TM.make_stark(63, 4, 4, 8, device="cpu")
-    assert (stark.fri.domain_length, stark.fri.num_rounds()) == (1024, 6)
+def device_prove(monkeypatch, timer, steps=63, domain=1024, rounds=6, device_hash="1"):
+    """A seeded prove of the ``steps``-step chain with ``timer`` on the
+    stark, on the device path (``device_hash`` "0": the host FRI); the
+    proof's bytes."""
+    monkeypatch.setenv("STARK_TPU_DEVICE_HASH", device_hash)
+    mimc, stark = TM.make_stark(steps, 4, 4, 8, device="cpu")
+    assert (stark.fri.domain_length, stark.fri.num_rounds()) == (domain, rounds)
     stark.timer = timer
     x = Field.main().sample(b"phase parts")
     _, proof, _ = TM.prove_chain(mimc, stark, x, urandom=det_urandom(b"phase parts"))
     return proof
 
 
-@pytest.mark.parametrize("tail,host_rounds", TAILS)
-def test_a_device_prove_records_the_parts_of_fri_and_trace_gen(monkeypatch, tail, host_rounds):
+@pytest.mark.parametrize("steps,domain,rounds", STEPS)
+def test_a_device_prove_records_the_parts_of_fri_and_trace_gen(monkeypatch, steps, domain, rounds):
     timer = PhaseTimer()
-    device_prove(monkeypatch, tail, timer)
+    device_prove(monkeypatch, timer, steps, domain, rounds)
     assert set(timer.totals) == PROVE_PHASES
     assert set(timer.counts) == PROVE_PHASES
     want = {"fri.rounds": 1, "fri.leave": 1, "fri.queries": 1,
             "trace_gen.chain": 1, "trace_gen.upload": 1}
-    if host_rounds:
-        want.update({"fri.host_fold": host_rounds, "fri.host_commit": host_rounds})
     assert dict(timer.part_counts) == want
     assert set(timer.parts) == set(want) <= FRI_PARTS | TRACE_PARTS
     for phase in ("fri", "trace_gen"):
@@ -94,10 +93,30 @@ def test_a_device_prove_records_the_parts_of_fri_and_trace_gen(monkeypatch, tail
         assert 0 < inside <= timer.totals[phase]
 
 
+def test_one_device_folds_to_the_last_layer_on_the_card_and_changes_no_byte(monkeypatch):
+    """Every round folds on the device path and only the last layer (32
+    elements) leaves it, and the proof is the host FRI's (prove_host: every
+    fold on the host)."""
+    layers = []
+    commit = Fri.commit
+
+    def spy(self, *args, **kwargs):
+        out = commit(self, *args, **kwargs)
+        layers.extend(out[0])
+        return out
+
+    monkeypatch.setattr(Fri, "commit", spy)
+    proof = device_prove(monkeypatch, PhaseTimer())
+    assert [type(layer) for layer in layers] == [DeviceRows] * 6
+    assert [len(layer) for layer in layers] == [1024 >> r for r in range(6)]
+    monkeypatch.setattr(Fri, "commit", commit)
+    assert proof == device_prove(monkeypatch, PhaseTimer(), device_hash="0")
+
+
 def test_parts_lie_inside_their_phase_in_order_and_change_no_byte(monkeypatch):
     recorder = SpanRecorder()
-    proof = device_prove(monkeypatch, 64, recorder)
-    assert proof == device_prove(monkeypatch, 64, PhaseTimer())
+    proof = device_prove(monkeypatch, recorder)
+    assert proof == device_prove(monkeypatch, PhaseTimer())
     spans = sorted(recorder.spans, key=lambda s: s[1])
     phases = {name: (a, b) for name, a, b in spans if "." not in name}
     for name, a, b in spans:
@@ -105,9 +124,7 @@ def test_parts_lie_inside_their_phase_in_order_and_change_no_byte(monkeypatch):
             lo, hi = phases[name.partition(".")[0]]
             assert lo <= a <= b <= hi, name
     fri = [(name, a, b) for name, a, b in spans if name.startswith("fri.")]
-    assert [name for name, _, _ in fri] == (["fri.rounds", "fri.leave"]
-                                            + ["fri.host_fold", "fri.host_commit"] * 2
-                                            + ["fri.queries"])
+    assert [name for name, _, _ in fri] == ["fri.rounds", "fri.leave", "fri.queries"]
     assert all(b <= a2 for (_, _, b), (_, a2, _) in zip(fri, fri[1:]))
     assert [name for name, _, _ in spans if name.startswith("trace_gen.")] == [
         "trace_gen.chain", "trace_gen.upload"]

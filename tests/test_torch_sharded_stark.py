@@ -8,8 +8,7 @@ package's byte for byte, the zerofier roots are equal, and the JAX
 verifier accepts the sharded proof.  The heavy arrays really are sharded
 (S shards of N / S), and a spy on the one-device transforms and trees
 shows that none of them sees a codeword of N elements while the sharded
-route proves (with the FRI folds sharded too: ``Fri.HOST_TAIL_MAX``
-lowered, which changes no transcript byte).
+route proves, the FRI folding on the shards down to its last layer.
 """
 
 import hashlib
@@ -32,10 +31,10 @@ from stark_anatomy_tpu_torch.field.scalar import P
 from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime, make_air_evaluator
 from stark_anatomy_tpu_torch.ops import ntt as NTT
 from stark_anatomy_tpu_torch.parallel.mesh import Mesh, Sharded
-from stark_anatomy_tpu_torch.parallel.sharded_stark import ShardedFastStark
+from stark_anatomy_tpu_torch.parallel.sharded_stark import Paired, ShardedFastStark
 from stark_anatomy_tpu_torch.protocols import fast_stark as FS
 from stark_anatomy_tpu_torch.protocols.fast_stark import FastStark
-from stark_anatomy_tpu_torch.protocols.fri import Fri
+from stark_anatomy_tpu_torch.transcript.proof_stream import ProofStream
 from stark_anatomy_tpu_torch.utils.convert import device_from_ints
 
 torch.set_num_threads(1)
@@ -114,7 +113,8 @@ def test_sharded_proof_equals_one_device_and_jax(shards, jax_side, port_single):
     # the distributed transforms and the forests ran: two iNTT/LDE pairs
     # (preprocess's zerofier LDE, the trace, the randomizer)
     assert stark.routes["ntt_dist"] == 4 and "ntt_gathered" not in stark.routes
-    assert stark.routes["commit_host_forest"] == 4 and stark.routes["fri_host_tail"] == 1
+    # and every FRI round folds on the shards, to the last layer (16 elements)
+    assert stark.routes["commit_host_forest"] == 4 and stark.routes["fold_sharded"] == 5
 
 
 def test_sharded_prover_actually_shards():
@@ -145,7 +145,6 @@ def test_sharded_route_never_forms_a_full_codeword(monkeypatch, port_single):
     H6: while the sharded prover proves, none sees a codeword of N
     elements; the proof is still the one-device proof."""
     stark = sharded(4)
-    monkeypatch.setattr(Fri, "HOST_TAIL_MAX", 8)
     rp = RescuePrime()
     trace, boundary = statement(rp)
     air = rp.transition_constraints(stark.omicron)
@@ -180,4 +179,31 @@ def test_sharded_route_never_forms_a_full_codeword(monkeypatch, port_single):
     assert max(seen["stark_anatomy_tpu_torch.ops.ntt.ntt"]) == N // 4
     assert max(seen["stark_anatomy_tpu_torch.field.kernels.fri_fold"]) == N // 4
     assert max(seen["from_limbs_paired"]) == N // 4
-    assert stark.routes["fold_sharded"] == 5 and "fri_host_tail" not in stark.routes
+    assert stark.routes["fold_sharded"] == 5
+
+
+@pytest.mark.parametrize("shards", [2, 8])
+def test_a_sharded_prover_folds_fri_to_the_last_layer(shards):
+    """Over a FRI domain of 2^16 (13 layers, 2^16 down to 16 elements)
+    the sharded prover folds every round on its shards, as one device folds
+    every round on the card: 12 sharded folds, each layer a forest, the
+    last one's pair blocks an element each at 8 shards; every transcript
+    is prove_host's."""
+    args = (FIELD, 4, 2, 4, 1, 4096)
+    stark = ShardedFastStark(*args, transition_constraints_degree=2,
+                             mesh=Mesh([[torch.device("cpu")] * shards]))
+    single = FastStark(*args, transition_constraints_degree=2, device="cpu")
+    assert stark.fri_domain_length == single.fri_domain_length == 1 << 16
+    assert stark.fri.num_rounds() == 13
+    rng = random.Random(0x7A11 + shards)
+    values = [rng.randrange(P) for _ in range(1 << 16)]
+    codeword = device_from_ints(values, "cpu")
+    sharded_ps, single_ps, host_ps = ProofStream(), ProofStream(), ProofStream()
+    idx = stark._fri(Sharded.place(stark.mesh, codeword), sharded_ps)
+    assert stark.routes["fold_sharded"] == 12
+    layers, _ = stark.fri.commit(Paired.of(Sharded.place(stark.mesh, codeword)), ProofStream())
+    assert [type(layer) for layer in layers] == [DM.ForestRows] * 13
+    layers, _ = single.fri.commit(codeword, ProofStream())
+    assert [type(layer) for layer in layers] == [DM.DeviceRows] * 13
+    assert idx == single.fri.prove(codeword, single_ps) == single.fri.prove_host(values, host_ps)
+    assert sharded_ps.serialize() == single_ps.serialize() == host_ps.serialize()
