@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..field import ops as F
-from ..utils.convert import canonical_np, gather_rows, int_from_row
+from ..utils.convert import canonical_np, gather_rows, ints_from_rows
 from .kernels import merkle_paired
 from .merkle import MerkleTree
 
@@ -128,8 +128,7 @@ class DeviceRows:
         if not len(indices):
             return []
         idx = torch.tensor(list(indices), dtype=torch.int64, device=self.canon.device)
-        rows = self.canon.index_select(-1, idx).cpu().numpy().T
-        return [int_from_row(row) for row in rows]
+        return ints_from_rows(self.canon.index_select(-1, idx).cpu().numpy().T)
 
     def __getitem__(self, i: int) -> int:
         return self.gather([i])[0]
@@ -290,7 +289,7 @@ class ForestRows:
             if k in self.blocks:
                 rows = self.blocks[k]
                 locs = [p for _, p in pairs]
-                vals = rows.gather(locs) if hasattr(rows, "gather") else [int_from_row(rows[p]) for p in locs]
+                vals = gather_rows(rows, locs)
                 local.update(zip((i for i, _ in pairs), vals))
         found = self.merge(local)
         return [found[i] for i in indices]

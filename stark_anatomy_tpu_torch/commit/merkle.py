@@ -59,6 +59,13 @@ class MerkleTree:
         assert n > 1 and n & (n - 1) == 0, "row count must be a power of two"
         return cls(_digests=NB.leaves_from_limb_pairs(canonical_limbs))
 
+    @classmethod
+    def of_levels(cls, levels: List[np.ndarray]) -> "MerkleTree":
+        """The tree whose levels, leaf digests first, are already hashed."""
+        tree = cls.__new__(cls)
+        tree.levels = levels
+        return tree
+
     @property
     def root(self) -> bytes:
         return self.levels[-1][0].tobytes()
@@ -86,6 +93,29 @@ class MerkleTree:
                 acc = hash_pair(acc, sibling)
             index >>= 1
         return acc == root
+
+
+def paired_trees(layers: np.ndarray) -> List[MerkleTree]:
+    """One paired-leaf tree per codeword of canonical (B, n, NLIMBS) rows,
+    each equal to ``MerkleTree.from_limbs_paired`` of its rows.  N1 hashes
+    the whole batch's leaves in one call and each level of all B trees in
+    one more: a level of B trees pairs digests 2j and 2j + 1 inside one
+    tree, so the batch's levels stack.  The trees' levels are views of the
+    stacked ones."""
+    B, n = layers.shape[:2]
+    assert n > 1 and n & (n - 1) == 0, "row count must be a power of two"
+    half = n // 2
+    width = layers.shape[2]
+    # leaf j of tree b pairs rows b[j] and b[j + n/2]: the first halves
+    # stacked, then the second halves, pair row i with row i + B n/2
+    level = NB.leaves_from_limb_pairs(np.concatenate(
+        [layers[:, :half].reshape(-1, width), layers[:, half:].reshape(-1, width)]))
+    levels = [level]
+    while level.shape[0] > B:
+        level = NB.merkle_level(level)
+        levels.append(level)
+    stacked = [lv.reshape(B, -1, lv.shape[-1]) for lv in levels]
+    return [MerkleTree.of_levels([lv[b] for lv in stacked]) for b in range(B)]
 
 
 class MerkleForest(MerkleTree):

@@ -174,10 +174,8 @@ class Field:
         """Map hash output bytes to a field element.
 
         Big-endian accumulation of the bytes, reduced mod p (reference:
-        algebra.py:116-120).  Used for Fiat-Shamir challenges, so the exact
+        algebra.py:116-120): acc = (acc << 8) ^ b over the bytes is their
+        big-endian value.  Used for Fiat-Shamir challenges, so the exact
         accumulation order matters.
         """
-        acc = 0
-        for b in byte_array:
-            acc = (acc << 8) ^ int(b)
-        return FieldElement(acc % self.p, self)
+        return FieldElement(int.from_bytes(bytes(byte_array), "big") % self.p, self)

@@ -6,16 +6,21 @@ through it with B = 1.  The device phases are parallel/batch.py's
 ``pipeline`` and ``combination`` over (B, ...) tensors; the per-proof host
 work (Merkle roots, Fiat-Shamir challenges, transcript assembly) loops
 over the batch, and the stark's ``timer`` records the JAX package's five
-phases (pipeline, commit, combination, fri, openings).  FRI folds the
-whole batch on the device at every B, one H7 launch a round
-(field/kernels.py:fri_fold_batched), with one host tree (N1) per proof
-and round: the JAX package's host branch below B*N = 2^14 (HOST_FRI_MAX)
-is not ported, since the card's fold is faster than the host's at B = 1
-too (PERF.md, tools/port_fri_branch.py).  ``make_batch_rpsss`` signs a
-batch of documents at the production parameters (the JAX package's
-BASELINE config 5 is a batch of 64).  With a ``mesh`` the batch splits
-over its dp axis: each group of B/dp proofs runs on its row's first
-device (a prover per device), with the bytes of the unsplit batch.
+phases (pipeline, commit, combination, fri, openings), the part
+``batch.statements`` before them and the parts ``fri.rounds`` and
+``fri.queries`` of ``fri``.  The statements share their boundary
+zerofiers; their public keys are one H2 launch and their interpolants
+one evaluation.  The host trees (N1) of a commitment or a FRI round are
+hashed for the whole batch at once (commit/merkle.py:paired_trees).  FRI
+folds the whole batch on the device at every B, one H7 launch a round
+(field/kernels.py:fri_fold_batched): the JAX package's host branch below
+B*N = 2^14 (HOST_FRI_MAX) is not ported, since the card's fold is faster
+than the host's at B = 1 too (PERF.md, tools/port_fri_branch.py).
+``make_batch_rpsss`` signs a batch of documents at the production
+parameters or at a ``config``'s (the JAX package's BASELINE config 5 is
+a batch of 64).  With a ``mesh`` the batch splits over its dp axis: each
+group of B/dp proofs runs on its row's first device (a prover per
+device), with the bytes of the unsplit batch.
 """
 
 from __future__ import annotations
@@ -25,18 +30,23 @@ from typing import List, Sequence
 
 import torch
 
-from ..commit.merkle import MerkleTree, open_multi
+from ..commit.merkle import MerkleTree, open_multi, paired_trees
 from ..config import RPSSS_CONFIG
 from ..field import kernels as K
 from ..field.limbs import NLIMBS
 from ..field.scalar import Field, FieldElement
 from ..models import rescue_prime as RP
-from ..ops.domain import mont_const
 from ..protocols.fast_stark import FastStark, TransitionZerofier
 from ..commit.device_merkle import gather_rows
 from ..transcript.proof_stream import SignatureProofStream
-from ..utils.convert import canonical_np, device_from_ints, int_from_row, limb_rows_np
+from ..utils.convert import canonical_np, device_from_ints, ints_from_device, ints_from_rows, limb_rows_np
 from .batch import combination, pipeline
+
+# The span of a batch's statements: the draws' conversion, the public keys
+# (rp.hash, on the card) and the boundary tables, before ``pipeline``.  The name is a
+# part's (utils/profiling.py), so the phase table keeps exactly the JAX
+# package's five phases.
+STATEMENTS = "batch.statements"
 
 
 class BatchProver:
@@ -96,7 +106,9 @@ class BatchProver:
         dist = mesh is not None and mesh.backend == "dist"
         draws = None
         if not dist or mesh.rank == 0:
-            draws = [self.field.sample(urandom(17)).value for _ in range(B * (width + depth))]
+            with stark.timer.phase(STATEMENTS):
+                p = self.field.p           # Field.sample of each draw
+                draws = [int.from_bytes(urandom(17), "big") % p for _ in range(B * (width + depth))]
         if dist:
             draws = mesh.broadcast(draws)
         if mesh is None or B % mesh.shape["dp"]:
@@ -126,20 +138,21 @@ class BatchProver:
         nrand = stark.num_randomizers
 
         max_degree = len(poly_vals) // B - 1
+        timer = stark.timer
 
-        boundaries = [rp.boundary_constraints(rp.hash(inp)) for inp in inputs]
-        sk_dev = device_from_ints([inp.value for inp in inputs], dev)
-        rand_rows = device_from_ints(row_vals, dev).reshape(NLIMBS, B, R, nrand).permute(1, 2, 0, 3)
-        rand_poly = device_from_ints(poly_vals, dev).reshape(NLIMBS, B, max_degree + 1).permute(1, 0, 2)
-
-        tables = [stark._boundary_tables(b) for b in boundaries]
-        inv_bz = torch.stack([tb[0] for tb in tables])     # (B, R, L, N)
-        interp = torch.stack([tb[1] for tb in tables])
+        with timer.phase(STATEMENTS):
+            sk_dev = device_from_ints([inp.value for inp in inputs], dev)
+            # the public keys rp.hash(sk), by one H2 launch for the batch
+            boundaries = [rp.boundary_constraints(FieldElement(pk, self.field))
+                          for pk in ints_from_device(RP.hash_batch(sk_dev))]
+            rand_rows = device_from_ints(row_vals, dev).reshape(NLIMBS, B, R, nrand).permute(1, 2, 0, 3)
+            rand_poly = device_from_ints(poly_vals, dev).reshape(NLIMBS, B, max_degree + 1).permute(1, 0, 2)
+            # (R, L, N) zerofiers shared by the batch, (B, R, L, N) interpolants
+            inv_bz, interp = stark._boundary_tables_batch(boundaries)
 
         # the JAX package's five phases (parallel/batch_prover.py:prove_batch);
         # each ends in a copy to the host or in host work, so it waits for
         # the card without a synchronisation of its own
-        timer = stark.timer
         with timer.phase("pipeline"):
             bq_lde, tq_lde, rand_lde = pipeline(
                 stark, self._air_constants, sk_dev, rand_rows, rand_poly, inv_bz, interp,
@@ -150,21 +163,19 @@ class BatchProver:
 
         # per-proof commitments + Fiat-Shamir weights
         with timer.phase("commit"):
-            bq_trees = [
-                [MerkleTree.from_limbs_paired(bq_np[i][s]) for s in range(R)]
-                for i in range(B)
-            ]
-            rand_trees = [MerkleTree.from_limbs_paired(rand_np[i]) for i in range(B)]
-            weight_cols = []
+            flat = paired_trees(bq_np.reshape((B * R,) + bq_np.shape[2:]))
+            bq_trees = [flat[i * R:(i + 1) * R] for i in range(B)]
+            rand_trees = paired_trees(rand_np)
+            weight_vals = []
             n_weights = 1 + 2 * len(self.air) + 2 * R
             for i in range(B):
                 ps = proof_streams[i]
                 for s in range(R):
                     ps.push(bq_trees[i][s].root)
                 ps.push(rand_trees[i].root)
-                ws = stark.sample_weights(n_weights, ps.prover_fiat_shamir())
-                weight_cols.append(torch.stack([mont_const(w.value, dev) for w in ws]))
-            weights = torch.stack(weight_cols)             # (B, W, L, 1)
+                weight_vals += [w.value for w in stark.sample_weights(n_weights, ps.prover_fiat_shamir())]
+            weights = (device_from_ints(weight_vals, dev).reshape(NLIMBS, B, n_weights)
+                       .permute(1, 2, 0).unsqueeze(-1).contiguous())   # (B, W, L, 1)
 
         with timer.phase("combination"):
             tq_bounds = stark.transition_quotient_degree_bounds(self.air)
@@ -209,54 +220,57 @@ class BatchProver:
         last layer in the clear, the index draw and the query rounds.
         Returns each proof's top-level indices."""
         fri = self.stark.fri
+        timer = self.stark.timer
         B = codewords.shape[0]
         dev = codewords.device
         u = fri._initial_u(dev)
         codeword = codewords.contiguous()
-        layers = [canonical_np(codeword)]                  # per round (B, n, L)
         trees: List[List[MerkleTree]] = [[] for _ in range(B)]
         num = fri.num_rounds()
-        for r in range(num):
-            for i in range(B):
-                tree = MerkleTree.from_limbs_paired(layers[-1][i])
-                trees[i].append(tree)
-                proof_streams[i].push(tree.root)
-            if r == num - 1:
-                break
-            alphas = [self.field.sample(ps.prover_fiat_shamir()).value for ps in proof_streams]
-            alpha_dev = device_from_ints(alphas, dev).t().contiguous().unsqueeze(-1)  # (B, L, 1)
-            codeword, canon, u = K.fri_fold_batched(codeword, u, alpha_dev)
-            layers.append(limb_rows_np(canon))
+        with timer.phase("fri.rounds"):
+            layers = [canonical_np(codeword)]              # per round (B, n, L)
+            for r in range(num):
+                for i, tree in enumerate(paired_trees(layers[-1])):
+                    trees[i].append(tree)
+                    proof_streams[i].push(tree.root)
+                if r == num - 1:
+                    break
+                alphas = [self.field.sample(ps.prover_fiat_shamir()).value for ps in proof_streams]
+                alpha_dev = device_from_ints(alphas, dev).t().contiguous().unsqueeze(-1)  # (B, L, 1)
+                codeword, canon, u = K.fri_fold_batched(codeword, u, alpha_dev)
+                layers.append(limb_rows_np(canon))
 
         indices_per_proof = []
-        for i in range(B):
-            ps = proof_streams[i]
-            ps.push([int_from_row(row) for row in layers[-1][i]])
-            top = fri.sample_indices(
-                ps.prover_fiat_shamir(),
-                layers[0].shape[1] // 2,
-                layers[-1].shape[1],
-                fri.num_colinearity_tests,
-            )
-            indices = list(top)
-            for rr in range(len(layers) - 1):
-                half = layers[rr].shape[1] // 2
-                indices = [idx % half for idx in indices]
-                fri.query(layers[rr][i], trees[i][rr], indices, ps)
-            indices_per_proof.append(top)
+        with timer.phase("fri.queries"):
+            for i in range(B):
+                ps = proof_streams[i]
+                ps.push(ints_from_rows(layers[-1][i]))
+                top = fri.sample_indices(
+                    ps.prover_fiat_shamir(),
+                    layers[0].shape[1] // 2,
+                    layers[-1].shape[1],
+                    fri.num_colinearity_tests,
+                )
+                indices = list(top)
+                for rr in range(len(layers) - 1):
+                    half = layers[rr].shape[1] // 2
+                    indices = [idx % half for idx in indices]
+                    fri.query(layers[rr][i], trees[i][rr], indices, ps)
+                indices_per_proof.append(top)
         return indices_per_proof
 
 
-def make_batch_rpsss(device=None, urandom=os.urandom):
-    """A batch signer at FastRPSSS's production parameters (the JAX
-    package's make_batch_rpsss): returns (prover, keygen, sign_batch).
+def make_batch_rpsss(device=None, urandom=os.urandom, config=None):
+    """A batch signer at FastRPSSS's production parameters, or at
+    ``config`` (a StarkConfig, as ``FastRPSSS`` takes), like the JAX
+    package's make_batch_rpsss: returns (prover, keygen, sign_batch).
     ``sign_batch(sks, documents)`` returns one signature per document, each
     of which verifies under ``FastRPSSS.verify`` with its own pk.  It runs
     on the CUDA card unless ``device="cpu"``; randomness comes from
     ``urandom``."""
     field = Field.main()
     rp = RP.RescuePrime()
-    stark = FastStark.from_config(RPSSS_CONFIG, field, device=device)
+    stark = FastStark.from_config(config or RPSSS_CONFIG, field, device=device)
     tz = stark.preprocess()
     prover = BatchProver(stark, rp, tz)
 

@@ -98,6 +98,7 @@ class FastStark(StarkParams):
         super().__init__(*args, **kwargs)
         self._interp_cache = None
         self._bz_cache: Dict[tuple, tuple] = {}
+        self._bz_shared: Dict[tuple, torch.Tensor] = {}
         self._xpow_cache: Dict[int, torch.Tensor] = {}
         self._x_lde_arr = None
         self._air_fn_cache: Dict[tuple, object] = {}
@@ -346,18 +347,39 @@ class FastStark(StarkParams):
         self._bz_cache[key] = out
         return out
 
-    def _stack_coeffs(self, polys) -> torch.Tensor:
-        """Host polynomials -> (R, L, deg) zero-padded coefficient tensor."""
-        deg = max(max(len(p.coefficients) for p in polys), 1)
-        return torch.stack(
-            [
-                NTT._pad_coeffs(
-                    device_from_ints([c.value for c in p.coefficients] or [0], self.device),
-                    deg,
-                )
-                for p in polys
-            ]
+    def _boundary_tables_batch(self, boundaries: Sequence[Boundary]):
+        """The boundary tables of a batch of statements of one AIR, whose
+        boundaries constrain the same (cycle, register) points with values
+        of their own: the inverted zerofier codewords (R, L, N), which
+        depend on the points alone and are shared by the batch (cached),
+        and the interpolant codewords (B, R, L, N), all evaluated in one
+        pass.  Element for element ``_boundary_tables`` of each."""
+        points = {tuple(sorted((c, r) for c, r, _ in b)) for b in boundaries}
+        assert len(points) == 1, "a batch's boundaries constrain the same points"
+        key = points.pop()
+        if key not in self._bz_shared:
+            self._bz_shared[key] = self._pointwise(
+                _inverse_evaluations,
+                self._stack_coeffs(self.boundary_zerofiers(boundaries[0])),
+                self._interp_tables()["x_lde"],
+            )
+        R = self.num_registers
+        interps = [p for b in boundaries for p in self.boundary_interpolants(b)]
+        coeffs = self._stack_coeffs(interps)
+        interp = self._pointwise(
+            NTT.evaluate_domain_horner,
+            coeffs.reshape((len(boundaries), R) + tuple(coeffs.shape[1:])),
+            self._interp_tables()["x_lde"],
         )
+        return self._bz_shared[key], interp
+
+    def _stack_coeffs(self, polys) -> torch.Tensor:
+        """Host polynomials -> (len(polys), L, deg) zero-padded coefficient
+        tensor, in one copy to the device."""
+        deg = max(max(len(p.coefficients) for p in polys), 1)
+        values = [c.value for p in polys for c in p.coefficients + [self.field.zero()] * (deg - len(p.coefficients))]
+        limbs = device_from_ints(values, self.device).reshape(NLIMBS, len(polys), deg)
+        return limbs.permute(1, 0, 2).contiguous()
 
     # ------------------------------------------------------------------
     # prover
@@ -756,6 +778,12 @@ def _boundary_tables_core(bz: torch.Tensor, ip: torch.Tensor, x_lde: torch.Tenso
         F.batch_inv(NTT.evaluate_domain_horner(bz, x_lde)),
         NTT.evaluate_domain_horner(ip, x_lde),
     )
+
+
+def _inverse_evaluations(coeffs: torch.Tensor, x_lde: torch.Tensor):
+    """(..., L, D) coefficients -> the inverses of their (..., L, N)
+    FRI-domain codewords."""
+    return F.batch_inv(NTT.evaluate_domain_horner(coeffs, x_lde))
 
 
 def _bq_core(trace_lde, interp, inv_bz):

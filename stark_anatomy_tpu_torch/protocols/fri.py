@@ -95,10 +95,8 @@ class Fri:
     # -- index sampling (reference: fri.py:30-51) ---------------------------
     @staticmethod
     def sample_index(byte_array: bytes, size: int) -> int:
-        acc = 0
-        for b in byte_array:
-            acc = (acc << 8) ^ int(b)
-        return acc % size
+        # acc = (acc << 8) ^ b over the bytes is their big-endian value
+        return int.from_bytes(bytes(byte_array), "big") % size
 
     def sample_indices(self, seed: bytes, size: int, reduced_size: int, number: int):
         assert number <= reduced_size, (

@@ -17,16 +17,16 @@ from ..field import ops as F
 from ..field.limbs import LIMB_BITS, NLIMBS, R
 from ..field.scalar import P
 
+ELEMENT_BYTES = NLIMBS * LIMB_BITS // 8       # an element's canonical little-endian bytes
+
 
 def device_from_ints(values: Sequence[int], device) -> torch.Tensor:
-    """Canonical ints -> Montgomery limb tensor (NLIMBS, n) on ``device``."""
-    out = np.empty((NLIMBS, len(values)), dtype=np.int32)
-    if len(values):
-        rem = np.array([v % P * R % P for v in values], dtype=object)
-        for k in range(NLIMBS):
-            out[k] = (rem & 0xFFFF).astype(np.int64)
-            rem = rem >> LIMB_BITS
-    return torch.from_numpy(out).to(device)
+    """Canonical ints -> Montgomery limb tensor (NLIMBS, n) on ``device``:
+    each value's Montgomery form as ELEMENT_BYTES little-endian bytes, the
+    whole list read as 16-bit limbs at once."""
+    data = b"".join((v % P * R % P).to_bytes(ELEMENT_BYTES, "little") for v in values)
+    limbs = np.frombuffer(data, dtype="<u2").reshape(len(values), NLIMBS)
+    return torch.from_numpy(np.ascontiguousarray(limbs.T, dtype=np.int32)).to(device)
 
 
 def ints_from_device(arr: torch.Tensor) -> List[int]:
@@ -54,6 +54,14 @@ def limb_rows_np(canon: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(np.moveaxis(rows, -2, -1))
 
 
+def ints_from_rows(rows: np.ndarray) -> List[int]:
+    """Canonical element-major limb rows (k, NLIMBS) -> Python ints, read
+    from one byte string (``int_from_row`` of each row)."""
+    data = np.ascontiguousarray(rows, dtype="<u2").tobytes()
+    return [int.from_bytes(data[i:i + ELEMENT_BYTES], "little")
+            for i in range(0, len(data), ELEMENT_BYTES)]
+
+
 def int_from_row(row: np.ndarray) -> int:
     """One canonical element-major limb row (NLIMBS,) -> Python int."""
     acc = 0
@@ -71,4 +79,4 @@ def gather_rows(rows, indices) -> List[int]:
         return rows.gather(indices)
     if isinstance(rows, list):
         return [rows[i] for i in indices]
-    return [int_from_row(rows[i]) for i in indices]
+    return ints_from_rows(rows[list(indices)])

@@ -24,12 +24,14 @@ from stark_anatomy_tpu.models.rescue_prime import RescuePrime as JaxRescuePrime
 from stark_anatomy_tpu.parallel.batch_prover import BatchProver as JaxBatchProver
 from stark_anatomy_tpu.protocols.fast_stark import FastStark as JaxFastStark
 from stark_anatomy_tpu.transcript.proof_stream import SignatureProofStream as JaxSPS
+from stark_anatomy_tpu_torch.field.limbs import NLIMBS
 from stark_anatomy_tpu_torch.field.scalar import P
+from stark_anatomy_tpu_torch.models import rescue_prime as RP
 from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime
 from stark_anatomy_tpu_torch.parallel.batch_prover import BatchProver
 from stark_anatomy_tpu_torch.protocols.fast_stark import FastStark
 from stark_anatomy_tpu_torch.transcript.proof_stream import SignatureProofStream
-from stark_anatomy_tpu_torch.utils.convert import device_from_ints
+from stark_anatomy_tpu_torch.utils.convert import device_from_ints, ints_from_device
 
 torch.set_num_threads(1)
 
@@ -147,3 +149,20 @@ def test_batched_fri_writes_the_transcripts_of_prove_host(port_prover):
         host = SignatureProofStream(DOCS[i])
         assert stark.fri.prove_host(vals[i], host) == indices[i]
         assert host.serialize() == streams[i].serialize(), i
+
+
+def test_the_batch_s_boundary_tables_are_each_statement_s(port_prover):
+    """``_boundary_tables_batch`` (the public keys by one batched hash, the
+    zerofiers shared by the batch, the interpolants in one pass) gives
+    element for element ``_boundary_tables`` of each boundary alone."""
+    stark = port_prover.stark
+    sks = device_from_ints([x.value for x in inputs()], "cpu")
+    assert ints_from_device(RP.hash_batch(sks)) == [RescuePrime().hash(x).value for x in inputs()]
+    bs = boundaries()
+    inv_bz, interp = stark._boundary_tables_batch(bs)
+    assert tuple(inv_bz.shape) == (stark.num_registers, NLIMBS, stark.fri_domain_length)
+    assert tuple(interp.shape) == (B,) + tuple(inv_bz.shape)
+    for i, b in enumerate(bs):
+        alone_bz, alone_ip = stark._boundary_tables(b)
+        assert torch.equal(inv_bz, alone_bz)
+        assert torch.equal(interp[i], alone_ip), i

@@ -203,7 +203,7 @@ def test_convert_matches_jax():
     assert TC.ints_from_device(td) == vals == JC.ints_from_device(jd)
     np.testing.assert_array_equal(JC.canonical_np(jd), TC.canonical_np(td))
     rows = TC.canonical_np(td)
-    assert [TC.int_from_row(r) for r in rows] == vals
+    assert [TC.int_from_row(r) for r in rows] == vals == TC.ints_from_rows(rows)
     assert TC.gather_rows(rows, [3, 0]) == [vals[3], vals[0]]
     assert TC.device_from_ints([], "cpu").shape == (NLIMBS, 0)
 

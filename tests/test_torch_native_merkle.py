@@ -16,7 +16,7 @@ import torch
 
 from stark_anatomy_tpu.commit import merkle as JM
 from stark_anatomy_tpu_torch.commit import native as NB
-from stark_anatomy_tpu_torch.commit.merkle import MerkleTree, open_multi, paired_tree_from_ints
+from stark_anatomy_tpu_torch.commit.merkle import MerkleTree, open_multi, paired_tree_from_ints, paired_trees
 from stark_anatomy_tpu_torch.utils.convert import int_from_row
 
 torch.set_num_threads(1)
@@ -52,6 +52,24 @@ def test_paired_tree_matches_hashlib_and_jax(n):
     assert open_multi(tree, idx) == JM.open_multi(jtree, idx)
     # the tree over canonical ints hashes the same leaves
     assert paired_tree_from_ints([int_from_row(r) for r in canon]).root == tree.root
+
+
+@pytest.mark.parametrize("batch", [1, 3, 64])
+@pytest.mark.parametrize("n", [2, 4, 512])
+def test_a_batch_of_paired_trees_is_each_codeword_s_tree(batch, n):
+    """paired_trees hashes a batch's leaves and levels stacked: every tree
+    is MerkleTree.from_limbs_paired of its own rows, level for level, with
+    the same openings."""
+    layers = np.stack([rows(n, 1000 * batch + n + b) for b in range(batch)])
+    trees = paired_trees(layers)
+    assert len(trees) == batch
+    idx = sorted({0, n // 4, n // 2 - 1})
+    for b, tree in enumerate(trees):
+        alone = MerkleTree.from_limbs_paired(layers[b])
+        assert [lv.tobytes() for lv in tree.levels] == [lv.tobytes() for lv in alone.levels], b
+        assert tree.root == alone.root
+        assert open_multi(tree, idx) == open_multi(alone, idx)
+        assert tree.open(idx[-1]) == alone.open(idx[-1])
 
 
 @pytest.mark.parametrize("n", SIZES)

@@ -157,3 +157,41 @@ def test_report_lists_each_part_under_its_phase_with_its_share():
     assert lines[1].split()[1:] == ["200.00", "ms", "x1", "50.0%", "of", "fri"]
     assert lines[2].split()[-3] == "25.0%"
     assert lines[5].split()[-3] == "50.0%"
+
+
+BATCH_PHASES = {"pipeline", "commit", "combination", "fri", "openings"}
+
+
+def batch_sign(timer):
+    """A seeded batch of two signatures at small parameters (FRI domain
+    512) with ``timer`` on the prover's stark; their bytes."""
+    from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime
+    from stark_anatomy_tpu_torch.parallel.batch_prover import BatchProver
+    from stark_anatomy_tpu_torch.protocols.fast_stark import FastStark
+    from stark_anatomy_tpu_torch.transcript.proof_stream import SignatureProofStream
+
+    rp = RescuePrime()
+    stark = FastStark(Field.main(), 4, 2, 4, rp.m, rp.N + 1, transition_constraints_degree=3,
+                      device="cpu")
+    stark.timer = timer
+    prover = BatchProver(stark, rp, stark.preprocess())
+    sks = [Field.main().sample(bytes([9, i])) for i in range(2)]
+    streams = [SignatureProofStream(b"parts %d" % i) for i in range(2)]
+    return prover.prove_batch(sks, streams, urandom=det_urandom(b"batch parts"))
+
+
+def test_a_batch_records_its_statements_and_the_parts_of_fri_and_changes_no_byte():
+    recorder = SpanRecorder()
+    proofs = batch_sign(recorder)
+    assert proofs == batch_sign(PhaseTimer())
+    assert set(recorder.totals) == set(recorder.counts) == BATCH_PHASES
+    assert dict(recorder.part_counts) == {"batch.statements": 2, "fri.rounds": 1, "fri.queries": 1}
+    spans = sorted(recorder.spans, key=lambda s: s[1])
+    names = [name for name, _, _ in spans]
+    assert names == ["batch.statements", "batch.statements", "pipeline", "commit", "combination",
+                     "fri", "fri.rounds", "fri.queries", "openings"]
+    fri = dict((name, (a, b)) for name, a, b in spans)["fri"]
+    for name, a, b in spans:
+        if name.startswith("fri."):
+            assert fri[0] <= a <= b <= fri[1], name
+    assert all(b <= a2 for (_, _, b), (_, a2, _) in zip(spans[:5], spans[1:6]))
