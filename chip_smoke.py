@@ -561,8 +561,8 @@ def profile_sign(sign) -> None:
 # the prover's main steps, and what prove_batch does before its first
 # phase: the host Rescue hash of the boundary, the max-degree bound of the
 # symbolic AIR, the randomness draws and their upload
-HOST_SPANS = ("trace_batch", "pipeline", "from_limbs_paired", "combination",
-              "_fri_batch", "open_multi", "hash", "max_degree", "sample", "device_from_ints")
+HOST_SPANS = ("trace_batch", "pipeline", "paired_levels", "combination",
+              "_fri_batch", "_open", "hash", "max_degree", "sample", "device_from_ints")
 # the steps of a large-trace prove: N2's chain, the boundary tables, the
 # device FRI's rounds and its copy of the last layer, the query rounds,
 # the openings' gathers, the transcript

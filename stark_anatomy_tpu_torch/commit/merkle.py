@@ -3,7 +3,9 @@
 The port of stark_anatomy_tpu/commit/merkle.py: ``MerkleTree`` with
 ``from_limbs`` and ``from_limbs_paired``, the per-shard ``MerkleForest``
 and ``ShardedRows``, the stateless ``Merkle``, ``open_multi``,
-``verify_multi`` and ``paired_tree_from_ints``.  Leaves and levels are hashed in C++ by
+``verify_multi`` and ``paired_tree_from_ints``; and, for a batch of
+trees, ``paired_levels`` and ``MultiproofWalk``, which opens B trees at
+B index sets in one walk.  Leaves and levels are hashed in C++ by
 commit/native.py (N1), as the JAX package hashes them through
 native/blake2b_batch.py; the hashlib versions there are the plain ones.
 A tree built on the card is a commit/device_merkle.py:DeviceMerkleTree,
@@ -95,13 +97,13 @@ class MerkleTree:
         return acc == root
 
 
-def paired_trees(layers: np.ndarray) -> List[MerkleTree]:
-    """One paired-leaf tree per codeword of canonical (B, n, NLIMBS) rows,
-    each equal to ``MerkleTree.from_limbs_paired`` of its rows.  N1 hashes
-    the whole batch's leaves in one call and each level of all B trees in
-    one more: a level of B trees pairs digests 2j and 2j + 1 inside one
-    tree, so the batch's levels stack.  The trees' levels are views of the
-    stacked ones."""
+def paired_levels(layers: np.ndarray) -> List[np.ndarray]:
+    """The levels, leaf digests first, of one paired-leaf tree per codeword
+    of canonical (B, n, NLIMBS) rows, stacked: level l is (B, n/2^(l+1),
+    DIGEST_LEN) and tree b is ``MerkleTree.from_limbs_paired`` of its rows.
+    N1 hashes the whole batch's leaves in one call and each level of all B
+    trees in one more: a level of B trees pairs digests 2j and 2j + 1
+    inside one tree, so the batch's levels stack."""
     B, n = layers.shape[:2]
     assert n > 1 and n & (n - 1) == 0, "row count must be a power of two"
     half = n // 2
@@ -114,8 +116,14 @@ def paired_trees(layers: np.ndarray) -> List[MerkleTree]:
     while level.shape[0] > B:
         level = NB.merkle_level(level)
         levels.append(level)
-    stacked = [lv.reshape(B, -1, lv.shape[-1]) for lv in levels]
-    return [MerkleTree.of_levels([lv[b] for lv in stacked]) for b in range(B)]
+    return [lv.reshape(B, -1, lv.shape[-1]) for lv in levels]
+
+
+def paired_trees(layers: np.ndarray) -> List[MerkleTree]:
+    """``paired_levels`` as B trees, whose levels are views of the stacked
+    ones."""
+    stacked = paired_levels(layers)
+    return [MerkleTree.of_levels([lv[b] for lv in stacked]) for b in range(len(layers))]
 
 
 class MerkleForest(MerkleTree):
@@ -236,11 +244,68 @@ def paired_tree_from_ints(codeword: Sequence[int]) -> MerkleTree:
     return MerkleTree(enc)
 
 
+class MultiproofWalk:
+    """Which siblings the multiproofs of B leaf-index sets hold, for trees
+    of n leaves: walked once for the batch, level by level, over the keys
+    b n_l + i of node i of proof b at a level of n_l nodes (every level
+    below the root is even, so the sibling k ^ 1 stays in proof b).  At
+    each level a known node whose sibling is not known yields that
+    sibling, in sorted-index order; then the parents are known.  One walk
+    serves every tree opened at the same sets (``digests``).
+
+    ``levels[l]`` is (proof, node) of level l's siblings, proof-major;
+    ``order`` puts the concatenated levels in proof order, each proof's
+    siblings leaf level first as ``open_multi`` gives them; ``counts[b]``
+    is proof b's number of siblings."""
+
+    __slots__ = ("levels", "order", "counts")
+
+    def __init__(self, index_sets: Sequence[Sequence[int]], n: int):
+        assert n > 0 and n & (n - 1) == 0, "leaf count must be a power of two"
+        B = len(index_sets)
+        keys = np.unique(np.concatenate(
+            [b * n + np.asarray(s, dtype=np.int64).reshape(-1) for b, s in enumerate(index_sets)]))
+        assert keys.size == 0 or (keys[0] >= 0 and keys[-1] < B * n), "cannot open invalid index"
+        self.levels = []
+        owners = []
+        shift = n.bit_length() - 1
+        for _ in range(shift):
+            # siblings side by side in the sorted keys share a parent: a
+            # node that is first under its parent and also last is alone
+            # there, and yields its sibling
+            parents = keys >> 1
+            first = np.empty(keys.size + 1, dtype=bool)
+            first[0] = first[-1] = True
+            np.not_equal(parents[1:], parents[:-1], out=first[1:-1])
+            sib = keys[first[:-1] & first[1:]] ^ 1
+            b = sib >> shift
+            self.levels.append((b, sib & ((1 << shift) - 1)))
+            owners.append(b)
+            keys = parents[first[:-1]]
+            shift -= 1
+        owner = np.concatenate(owners) if owners else np.zeros(0, dtype=np.int64)
+        self.order = np.argsort(owner, kind="stable")
+        self.counts = np.bincount(owner, minlength=B)
+
+    def digests(self, levels: Sequence[np.ndarray]) -> np.ndarray:
+        """The siblings' digests (total, DIGEST_LEN) in proof order, from a
+        tree's levels, leaf digests first: stacked (B, n_l, DIGEST_LEN),
+        proof b's tree at [b], or one tree's (n_l, DIGEST_LEN) shared by
+        every proof.  One fancy index a level."""
+        if not self.levels:
+            return np.zeros((0, levels[0].shape[-1]), dtype=np.uint8)
+        parts = [lv[b, i] if lv.ndim == 3 else lv[i] for lv, (b, i) in zip(levels, self.levels)]
+        return np.concatenate(parts)[self.order]
+
+
 def open_multi(tree, indices) -> List[bytes]:
     """Minimal batched authentication proof for a SET of leaf indices:
     level by level, only siblings that cannot be recomputed from below, in
     sorted-index order (the verifier reproduces it exactly).  A tree on
-    the card serves the same bytes through its own gather."""
+    the card serves the same bytes through its own gather.  One set walks
+    with Python sets: below about a hundred indices that is faster than
+    ``MultiproofWalk``'s numpy levels, whose cost a level a batch of sets
+    shares."""
     if hasattr(tree, "multiproof"):
         return tree.multiproof(indices)
     known = sorted(set(indices))

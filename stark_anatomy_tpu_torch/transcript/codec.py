@@ -12,14 +12,22 @@ Supported transcript object types:
   tuple[int, ...]            -- revealed leaf groups (e.g. FRI (a,b,c))
   list[int]                  -- codewords
   list[bytes]                -- Merkle authentication paths
+
+An empty list encodes as an empty list[int].  ``encode_felt_lists``,
+``encode_felt_tuples`` and ``encode_bytes_lists`` give a batch's objects'
+bytes at once, from canonical limb rows and digest arrays (numpy), byte
+for byte ``encode_obj`` of each (ProofStream.push_encoded takes them).
 """
 
 from __future__ import annotations
 
 import struct
-from typing import List, Tuple, Union
+from typing import List, Sequence, Tuple, Union
+
+import numpy as np
 
 from ..errors import MalformedProof
+from ..field.limbs import LIMB_BITS
 
 TranscriptObject = Union[bytes, int, Tuple[int, ...], List[int], List[bytes]]
 
@@ -51,6 +59,59 @@ def encode_obj(obj: TranscriptObject) -> bytes:
         body = b"".join(v.to_bytes(_FE_BYTES, "big") for v in obj)
         return struct.pack(">BI", _TAG_FELT_LIST, len(obj)) + body
     raise TypeError(f"cannot encode transcript object of type {type(obj)}")
+
+
+def _felt_bytes(rows: np.ndarray) -> np.ndarray:
+    """Canonical element-major limb rows (..., NLIMBS) -> each element's
+    _FE_BYTES big-endian bytes (..., _FE_BYTES) uint8."""
+    assert LIMB_BITS == 16
+    return np.ascontiguousarray(rows, dtype="<u2").view(np.uint8)[..., ::-1]
+
+
+def encode_felt_lists(rows: np.ndarray) -> np.ndarray:
+    """(B, k, NLIMBS) rows -> (B, 5 + 16 k) uint8: row b is encode_obj of
+    the list of row b's k elements."""
+    B, k = rows.shape[:2]
+    out = np.empty((B, 5 + _FE_BYTES * k), dtype=np.uint8)
+    out[:, :5] = np.frombuffer(struct.pack(">BI", _TAG_FELT_LIST, k), dtype=np.uint8)
+    out[:, 5:] = _felt_bytes(rows).reshape(B, -1)
+    return out
+
+
+def encode_felt_tuples(rows: np.ndarray) -> np.ndarray:
+    """(..., m, NLIMBS) rows -> (..., 2 + 16 m) uint8: encode_obj of each
+    m-tuple of elements."""
+    m = rows.shape[-2]
+    out = np.empty(rows.shape[:-2] + (2 + _FE_BYTES * m,), dtype=np.uint8)
+    out[..., :2] = (_TAG_FELT_TUPLE, m)
+    out[..., 2:] = _felt_bytes(rows).reshape(rows.shape[:-2] + (-1,))
+    return out
+
+
+def encode_bytes_lists(items: np.ndarray, counts: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """B lists of equal-length byte strings, the rows of ``items`` (M, w)
+    uint8 in list order, list b of ``counts[b]`` -> (data, ends): data the
+    lists' encode_obj bytes one after another, ends[b] the end of list b's
+    in data."""
+    counts = np.asarray(counts, dtype=np.int64)
+    M, w = items.shape
+    assert counts.sum() == M and (counts < 1 << 16).all() and w < 1 << 16
+    head = np.where(counts > 0, 3, 5)             # an empty list is an empty list[int]
+    sizes = head + counts * (2 + w)
+    ends = np.cumsum(sizes)
+    starts = ends - sizes
+    out = np.zeros(int(ends[-1]) if len(ends) else 0, dtype=np.uint8)
+    out[starts] = np.where(counts > 0, _TAG_BYTES_LIST, _TAG_FELT_LIST)
+    out[starts + 1] = counts >> 8
+    out[starts + 2] = counts & 0xFF
+    body = np.ones(out.size, dtype=bool)
+    hdr = starts[:, None] + np.arange(5)
+    body[hdr[np.arange(5) < head[:, None]]] = False
+    records = np.empty((M, 2 + w), dtype=np.uint8)
+    records[:, :2] = (w >> 8, w & 0xFF)
+    records[:, 2:] = items
+    out[body] = records.reshape(-1)
+    return out, ends
 
 
 def _need(buf: bytes, pos: int, n: int) -> None:

@@ -7,21 +7,30 @@ asymmetry is what makes the non-interactive replay line up.
 
 Improvements over the reference: incremental serialization (the reference
 re-pickles the entire transcript for every challenge, ip.py:21-25) and a
-deterministic binary codec instead of pickle.
+deterministic binary codec instead of pickle.  A prover may push a run of
+objects as their codec bytes (``push_encoded``); such objects are decoded
+from the transcript when ``objects`` is first read.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
+
+import numpy as np
 
 from ..commit.hashing import blake2s_digest, shake256
 from ..errors import MalformedProof
 from . import codec
 
 
+# the place of an object pushed as bytes and not decoded yet
+_ENCODED = object()
+
+
 class ProofStream:
     def __init__(self):
-        self.objects: List[codec.TranscriptObject] = []
+        self._objects: List[codec.TranscriptObject] = []
+        self._encoded = 0         # objects in _objects still _ENCODED
         self.read_index = 0
         # Incremental serialization: _buf is always codec.serialize(objects);
         # _offsets[i] = byte length of the serialized prefix of i objects.
@@ -29,10 +38,31 @@ class ProofStream:
         self._offsets = [len(codec.MAGIC)]
         self.prefix = b""  # domain-separation prefix (see SignatureProofStream)
 
+    @property
+    def objects(self) -> List[codec.TranscriptObject]:
+        if self._encoded:
+            for k, obj in enumerate(self._objects):
+                if obj is _ENCODED:
+                    self._objects[k], end = codec.decode_obj(self._buf, self._offsets[k])
+                    assert end == self._offsets[k + 1], "a pushed object's size is not its encoding's"
+            self._encoded = 0
+        return self._objects
+
     def push(self, obj: codec.TranscriptObject) -> None:
-        self.objects.append(obj)
+        self._objects.append(obj)
         self._buf += codec.encode_obj(obj)
         self._offsets.append(len(self._buf))
+
+    def push_encoded(self, data: bytes, sizes: Sequence[int]) -> None:
+        """Push a run of objects given as their bytes: ``data`` is
+        codec.encode_obj of each one after another, ``sizes`` their
+        lengths.  The transcript is as if each had been pushed."""
+        ends = (len(self._buf) + np.cumsum(sizes, dtype=np.int64)).tolist()
+        self._buf += data
+        assert ends[-1] == len(self._buf), "the sizes do not add up to the data"
+        self._offsets.extend(ends)
+        self._objects.extend([_ENCODED] * len(sizes))
+        self._encoded += len(sizes)
 
     def pull(self) -> codec.TranscriptObject:
         if self.read_index >= len(self.objects):

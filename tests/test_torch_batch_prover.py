@@ -166,3 +166,34 @@ def test_the_batch_s_boundary_tables_are_each_statement_s(port_prover):
         alone_bz, alone_ip = stark._boundary_tables(b)
         assert torch.equal(inv_bz, alone_bz)
         assert torch.equal(interp[i], alone_ip), i
+
+
+def test_the_batch_opens_every_multiproof_by_one_walk(port_prover, port_proofs):
+    """Every multiproof of a batch, the R + 2 opened trees' and each FRI
+    query layer's, comes from the batched walk, none one tree at a time,
+    and a second batch from the same draws gives the same bytes."""
+    stark = port_prover.stark
+    again = port_prover.prove_batch(inputs(), [SignatureProofStream(d) for d in DOCS],
+                                    urandom=det_urandom(SEED))
+    assert again == port_proofs
+    per_proof = stark.num_registers + 2 + stark.fri.num_rounds() - 1
+    assert port_prover.multiproofs == {"batched": B * per_proof, "single": 0}
+
+
+def test_a_zerofier_tree_on_the_device_is_opened_one_proof_at_a_time(port_proofs, monkeypatch):
+    """With the transition zerofier committed on the device path (a
+    DeviceMerkleTree, H4's plain version here), its openings go proof by
+    proof through the tree's own multiproof, the rest by the walk, and
+    the proofs are the same bytes."""
+    rp = RescuePrime()
+    stark = FastStark(FIELD, 4, 2, 4, rp.m, rp.N + 1, transition_constraints_degree=3, device="cpu")
+    monkeypatch.setenv("STARK_TPU_DEVICE_HASH", "1")
+    tz = stark.preprocess()
+    monkeypatch.delenv("STARK_TPU_DEVICE_HASH")
+    assert hasattr(tz.tree, "multiproof")
+    prover = BatchProver(stark, rp, tz)
+    proofs = prover.prove_batch(inputs(), [SignatureProofStream(d) for d in DOCS],
+                                urandom=det_urandom(SEED))
+    assert proofs == port_proofs
+    per_proof = stark.num_registers + 1 + stark.fri.num_rounds() - 1
+    assert prover.multiproofs == {"batched": B * per_proof, "single": B}
