@@ -252,8 +252,8 @@ SMALL_BATCH = 3                              # the tests' seeded batch (tests/te
 INTERP_SIZES = (16, 256)
 FOLD_BATCHED_BYTES = 128    # per folded element: c_i, c_{i+h} read; folded, canon written
 BATCH_SPANS = ("hash", "sample", "device_from_ints", "_boundary_tables", "pipeline",
-               "canonical_np", "from_limbs_paired", "combination", "_fri_batch", "fri_fold_batched",
-               "limb_rows_np", "query", "open_multi", "gather_rows", "serialize")
+               "canonical_np", "paired_levels", "combination", "_fri_batch", "fri_fold_batched",
+               "limb_rows_np", "queries", "open_linked", "digests", "gather_limbs", "serialize")
 LARGE_PHASES = ("trace_gen", "trace_lde", "boundary_quotients", "commit_bq", "air_quotients",
                 "randomizer_poly", "commit_randomizer", "combination", "fri", "openings")
 # multi-GPU sharding (phase 7): in-process shards on the one card (a
@@ -562,13 +562,14 @@ def profile_sign(sign) -> None:
 # phase: the host Rescue hash of the boundary, the max-degree bound of the
 # symbolic AIR, the randomness draws and their upload
 HOST_SPANS = ("trace_batch", "pipeline", "paired_levels", "combination",
-              "_fri_batch", "_open", "hash", "max_degree", "sample", "device_from_ints")
+              "_fri_batch", "queries", "open_linked", "hash", "max_degree", "sample", "device_from_ints")
 # the steps of a large-trace prove: N2's chain, the boundary tables, the
-# device FRI's rounds and its copy of the last layer, the query rounds,
-# the openings' gathers, the transcript
+# device FRI's rounds and its copy of the last layer, the query rounds and
+# the openings (their gathers and the one sibling walk), the transcript
 LARGE_SPANS = ("chain_bytes", "columns_from_words", "_boundary_tables", "_trace_lde",
                "coset_evaluate", "_x_lde_pow", "device_sync", "commit", "fri_fold",
-               "merkle_paired", "gather_rows", "query", "sample_indices", "open_multi", "serialize")
+               "merkle_paired", "gather_limbs", "queries", "sample_indices", "open_linked", "digests",
+               "serialize")
 
 
 def host_profile(label: str, fn, spans) -> None:

@@ -7,9 +7,11 @@ forest of a sharded codeword (``commit_forest``, ``ForestTree``,
 ``ForestRows``), the port's own, which commits without gathering.  The
 tree is H4 (commit/kernels.py:merkle_paired) over the canonical limbs
 that one H0 launch makes (``F.from_mont``); only the root and the
-queried digests and values are copied to the host, each opening by one
-``index_select`` and one copy.  Roots, paths and multiproofs are byte
-for byte those of the host MerkleTree over the same codeword.
+queried digests and values are copied to the host: the digests a
+commit/merkle.py:MultiproofWalk names by one ``index_select`` and one
+copy (``digests_at``), the values likewise (``limbs_at``).  Roots, paths
+and multiproofs are byte for byte those of the host MerkleTree over the
+same codeword.
 
 Not ported: the reference's padded gathers (``_take_padded``) and its
 padded-buffer trees (``n_leaves``, ``_commit_paired_dynamic``), which only
@@ -21,15 +23,17 @@ from __future__ import annotations
 
 import os
 import warnings
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..field import ops as F
-from ..utils.convert import canonical_np, gather_rows, ints_from_rows
+from ..field.limbs import NLIMBS
+from ..utils.convert import canonical_np, gather_limbs, gather_rows, ints_from_rows
 from .kernels import merkle_paired
-from .merkle import MerkleTree
+from .hashing import DIGEST_LEN
+from .merkle import MerkleTree, open_multi
 
 __all__ = [
     "DEVICE_COMMIT_MIN", "DeviceMerkleTree", "DeviceRows", "ForestRows", "ForestTree",
@@ -42,17 +46,21 @@ __all__ = [
 DEVICE_COMMIT_MIN = 1 << 18
 
 
+def _digest_rows(cols: torch.Tensor) -> np.ndarray:
+    """(8, k) digest words on any device -> the k digests (k, 32) uint8."""
+    return np.ascontiguousarray(cols.cpu().numpy().view(np.uint32).T.astype("<u4")).view(np.uint8)
+
+
 def _digest_bytes(cols: torch.Tensor) -> List[bytes]:
     """(8, k) digest words on any device -> the k 32-byte digests."""
-    words = cols.cpu().numpy().view(np.uint32).T.astype("<u4")
-    return [words[j].tobytes() for j in range(words.shape[0])]
+    return [d.tobytes() for d in _digest_rows(cols)]
 
 
 class DeviceMerkleTree:
     """A Merkle tree whose levels live on the card, as one flat (8, n)
     digest-word tensor (leaves first, root at column n - 2, pad last).
-    Same roots, paths and multiproofs as the host MerkleTree; an opening
-    is one gather over the flat tensor."""
+    Same roots, paths and multiproofs as the host MerkleTree; the digests
+    a walk names are one gather over the flat tensor and one copy."""
 
     __slots__ = ("flat", "offsets", "depth", "_root")
 
@@ -79,31 +87,15 @@ class DeviceMerkleTree:
     def __len__(self) -> int:
         return self.flat.shape[-1] // 2
 
-    def _gather_flat(self, flat_idx: Sequence[int]) -> List[bytes]:
-        if not flat_idx:
-            return []
-        idx = torch.tensor(list(flat_idx), dtype=torch.int64, device=self.flat.device)
-        return _digest_bytes(self.flat.index_select(-1, idx))
+    def digests_at(self, level: np.ndarray, proof: np.ndarray, node: np.ndarray) -> np.ndarray:
+        """The digests (k, 32) at (level, node), one tree for every proof:
+        one ``index_select`` over the flat tensor and one copy."""
+        idx = torch.from_numpy(np.asarray(self.offsets)[level] + node).to(self.flat.device)
+        return _digest_rows(self.flat.index_select(-1, idx))
 
     def open(self, index: int) -> List[bytes]:
         """Authentication path (sibling digests, leaf level first)."""
-        assert 0 <= index < len(self), "cannot open invalid index"
-        flat_idx = []
-        for level in range(self.depth):
-            flat_idx.append(self.offsets[level] + (index ^ 1))
-            index >>= 1
-        return self._gather_flat(flat_idx)
-
-    def multiproof(self, indices) -> List[bytes]:
-        """Minimal batched authentication proof, the bytes of
-        commit/merkle.py:open_multi over the host tree, from one gather."""
-        known = sorted(set(indices))
-        flat_idx: List[int] = []
-        for level in range(self.depth):
-            known_set = set(known)
-            flat_idx.extend(self.offsets[level] + (i ^ 1) for i in known if i ^ 1 not in known_set)
-            known = sorted({i >> 1 for i in known})
-        return self._gather_flat(flat_idx)
+        return open_multi(self, [index])
 
 
 class DeviceRows:
@@ -123,12 +115,17 @@ class DeviceRows:
     def __len__(self) -> int:
         return self.canon.shape[-1]
 
+    def limbs_at(self, indices) -> np.ndarray:
+        """Canonical limb rows (..., NLIMBS) at an index array (...) of any
+        shape: one gather, one copy."""
+        idx = np.asarray(indices, dtype=np.int64)
+        flat = torch.from_numpy(np.ascontiguousarray(idx.reshape(-1))).to(self.canon.device)
+        got = self.canon.index_select(-1, flat).cpu().numpy().T.astype(np.uint32)
+        return got.reshape(idx.shape + (NLIMBS,))
+
     def gather(self, indices) -> List[int]:
         """Canonical ints at ``indices`` (one gather, one copy)."""
-        if not len(indices):
-            return []
-        idx = torch.tensor(list(indices), dtype=torch.int64, device=self.canon.device)
-        return ints_from_rows(self.canon.index_select(-1, idx).cpu().numpy().T)
+        return ints_from_rows(self.limbs_at(indices))
 
     def __getitem__(self, i: int) -> int:
         return self.gather([i])[0]
@@ -217,42 +214,33 @@ class ForestTree:
     def __len__(self) -> int:
         return 1 << self.depth
 
-    def multiproof(self, indices) -> List[bytes]:
-        """The bytes of commit/merkle.py:open_multi over the monolithic tree:
-        the siblings in the same order, the subtrees' from one gather each."""
-        known = sorted(set(indices))
-        order = []
-        for level in range(self.depth):
-            known_set = set(known)
-            order.extend((level, i ^ 1) for i in known if i ^ 1 not in known_set)
-            known = sorted({i >> 1 for i in known})
-        wanted: Dict[int, list] = {}
-        for level, node in order:
-            if level < self.sub_depth:
-                shift = self.sub_depth - level
-                wanted.setdefault(node >> shift, []).append((level, node))
+    def digests_at(self, level: np.ndarray, proof: np.ndarray, node: np.ndarray) -> np.ndarray:
+        """The digests (k, DIGEST_LEN) at (level, node) of the monolithic
+        tree, level by level: a subtree level's from the subtree holding the
+        node, one gather each, joined by ``merge``; a top level's from the
+        top tree."""
+        out = np.empty((level.size, DIGEST_LEN), dtype=np.uint8)
+        sub = level < self.sub_depth                 # the levels sort, so the subtrees' come first
+        sub_level, sub_proof = level[sub], proof[sub]
+        shift = self.sub_depth - sub_level
+        owner = node[sub] >> shift
+        local_node = node[sub] & ((1 << shift) - 1)
         local = {}
-        for k, reqs in wanted.items():
+        for k in np.unique(owner).tolist():
             if k in self.subtrees:
-                shift = self.sub_depth
-                digests = _tree_digests(self.subtrees[k],
-                                        [(lv, nd - ((nd >> (shift - lv)) << (shift - lv))) for lv, nd in reqs])
-                local.update(zip(reqs, digests))
-        found = self.merge(local)
-        return [found[(lv, nd)] if lv < self.sub_depth
-                else self.top.levels[lv - self.sub_depth][nd].tobytes() for lv, nd in order]
+                m = owner == k
+                local[k] = self.subtrees[k].digests_at(sub_level[m], sub_proof[m], local_node[m])
+        at = np.flatnonzero(sub)
+        for k, digests in self.merge(local).items():
+            out[at[owner == k]] = digests
+        top = ~sub
+        if top.any():
+            out[top] = self.top.digests_at(level[top] - self.sub_depth, proof[top], node[top])
+        return out
 
     def open(self, index: int) -> List[bytes]:
         """Authentication path (sibling digests, leaf level first)."""
-        assert 0 <= index < len(self), "cannot open invalid index"
-        return self.multiproof([index])
-
-
-def _tree_digests(tree, reqs) -> List[bytes]:
-    """Digests at (level, node) of a host or device tree."""
-    if isinstance(tree, DeviceMerkleTree):
-        return tree._gather_flat([tree.offsets[lv] + nd for lv, nd in reqs])
-    return [tree.levels[lv][nd].tobytes() for lv, nd in reqs]
+        return open_multi(self, [index])
 
 
 class ForestRows:
@@ -276,23 +264,25 @@ class ForestRows:
     def __len__(self) -> int:
         return self.n
 
+    def limbs_at(self, indices) -> np.ndarray:
+        """Canonical limb rows (..., NLIMBS) at global indices, an array
+        (...) of any shape: one gather a block, joined by ``merge``."""
+        idx = np.asarray(indices, dtype=np.int64)
+        flat = idx.reshape(-1)
+        half = self.n // 2
+        leaf = flat % half
+        block = leaf // self.h
+        local_pos = leaf % self.h + np.where(flat >= half, self.h, 0)
+        local = {k: gather_limbs(self.blocks[k], local_pos[block == k])
+                 for k in np.unique(block).tolist() if k in self.blocks}
+        out = np.empty((flat.size, NLIMBS), dtype=np.uint32)
+        for k, rows in self.merge(local).items():
+            out[block == k] = rows
+        return out.reshape(idx.shape + (NLIMBS,))
+
     def gather(self, indices) -> List[int]:
         """Canonical ints at global ``indices`` (one gather a block)."""
-        half = self.n // 2
-        by_block: Dict[int, list] = {}
-        for i in indices:
-            leaf = i % half
-            k = leaf // self.h
-            by_block.setdefault(k, []).append((i, leaf % self.h + (self.h if i >= half else 0)))
-        local = {}
-        for k, pairs in by_block.items():
-            if k in self.blocks:
-                rows = self.blocks[k]
-                locs = [p for _, p in pairs]
-                vals = gather_rows(rows, locs)
-                local.update(zip((i for i, _ in pairs), vals))
-        found = self.merge(local)
-        return [found[i] for i in indices]
+        return ints_from_rows(self.limbs_at(indices))
 
     def __getitem__(self, i: int) -> int:
         return self.gather([i])[0]

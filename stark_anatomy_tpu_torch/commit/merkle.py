@@ -4,8 +4,10 @@ The port of stark_anatomy_tpu/commit/merkle.py: ``MerkleTree`` with
 ``from_limbs`` and ``from_limbs_paired``, the per-shard ``MerkleForest``
 and ``ShardedRows``, the stateless ``Merkle``, ``open_multi``,
 ``verify_multi`` and ``paired_tree_from_ints``; and, for a batch of
-trees, ``paired_levels`` and ``MultiproofWalk``, which opens B trees at
-B index sets in one walk.  Leaves and levels are hashed in C++ by
+trees, ``paired_levels``.  ``MultiproofWalk`` alone decides which
+siblings a multiproof holds, for B index sets at once, and every kind of
+tree serves the digests it names (``digests_at``); ``open_multi`` is the
+walk of one set.  Leaves and levels are hashed in C++ by
 commit/native.py (N1), as the JAX package hashes them through
 native/blake2b_batch.py; the hashlib versions there are the plain ones.
 A tree built on the card is a commit/device_merkle.py:DeviceMerkleTree,
@@ -22,7 +24,7 @@ from typing import List, Sequence
 import numpy as np
 
 from . import native as NB
-from .hashing import elt_bytes, hash_leaf, hash_pair
+from .hashing import DIGEST_LEN, elt_bytes, hash_leaf, hash_pair
 
 
 class MerkleTree:
@@ -63,7 +65,10 @@ class MerkleTree:
 
     @classmethod
     def of_levels(cls, levels: List[np.ndarray]) -> "MerkleTree":
-        """The tree whose levels, leaf digests first, are already hashed."""
+        """The tree whose levels, leaf digests first, are already hashed;
+        or B trees' stacked levels (B, n_l, DIGEST_LEN) (``paired_levels``),
+        which a walk opens at each proof's own tree (they have no one
+        ``root``)."""
         tree = cls.__new__(cls)
         tree.levels = levels
         return tree
@@ -77,12 +82,18 @@ class MerkleTree:
 
     def open(self, index: int) -> List[bytes]:
         """Authentication path (sibling digests, leaf level first)."""
-        assert 0 <= index < len(self), "cannot open invalid index"
-        path = []
-        for level in self.levels[:-1]:
-            path.append(level[index ^ 1].tobytes())
-            index >>= 1
-        return path
+        return open_multi(self, [index])
+
+    def digests_at(self, level: np.ndarray, proof: np.ndarray, node: np.ndarray) -> np.ndarray:
+        """The digests (k, DIGEST_LEN) at (level, proof, node), level by
+        level (``MultiproofWalk``'s order): one fancy index a level, proof
+        b's tree at [b] of stacked levels, the one tree of every proof
+        otherwise."""
+        cuts = np.searchsorted(level, np.arange(len(self.levels) + 1))
+        return np.concatenate([
+            lv[proof[a:b], node[a:b]] if lv.ndim == 3 else lv[node[a:b]]
+            for lv, a, b in zip(self.levels, cuts[:-1], cuts[1:])
+        ])
 
     @staticmethod
     def verify_path(root: bytes, index: int, path: List[bytes], leaf_digest: bytes) -> bool:
@@ -246,77 +257,65 @@ def paired_tree_from_ints(codeword: Sequence[int]) -> MerkleTree:
 
 class MultiproofWalk:
     """Which siblings the multiproofs of B leaf-index sets hold, for trees
-    of n leaves: walked once for the batch, level by level, over the keys
-    b n_l + i of node i of proof b at a level of n_l nodes (every level
-    below the root is even, so the sibling k ^ 1 stays in proof b).  At
-    each level a known node whose sibling is not known yields that
-    sibling, in sorted-index order; then the parents are known.  One walk
-    serves every tree opened at the same sets (``digests``).
+    of n leaves: the one walk of every prover, for host, card and forest
+    trees alike.  A level's known nodes are the keys b n_l + i of node i
+    of proof b at a level of n_l nodes (every level below the root is
+    even, so the sibling k ^ 1 stays in proof b); a known node whose
+    sibling is not known yields that sibling, in sorted-index order, and
+    then the parents are known.  All levels at once: row l of a
+    (depth + 1, k) table holds the sorted leaf keys shifted right by l, so
+    each node of level l starts a run of equal keys in row l, and its
+    parent's run in row l + 1 starts at the same column or before.  A node
+    is alone under its parent when its run starts the parent's run and
+    the next run of its row starts another parent's (or there is none).
+    One walk serves every tree opened at the same sets (``digests``).
 
-    ``levels[l]`` is (proof, node) of level l's siblings, proof-major;
-    ``order`` puts the concatenated levels in proof order, each proof's
-    siblings leaf level first as ``open_multi`` gives them; ``counts[b]``
-    is proof b's number of siblings."""
+    ``level``, ``proof`` and ``node`` name the siblings level by level,
+    proof-major within a level; ``order`` puts them in proof order, each
+    proof's siblings leaf level first as ``open_multi`` gives them;
+    ``counts[b]`` is proof b's number of siblings."""
 
-    __slots__ = ("levels", "order", "counts")
+    __slots__ = ("level", "proof", "node", "order", "counts")
 
     def __init__(self, index_sets: Sequence[Sequence[int]], n: int):
         assert n > 0 and n & (n - 1) == 0, "leaf count must be a power of two"
-        B = len(index_sets)
-        keys = np.unique(np.concatenate(
-            [b * n + np.asarray(s, dtype=np.int64).reshape(-1) for b, s in enumerate(index_sets)]))
-        assert keys.size == 0 or (keys[0] >= 0 and keys[-1] < B * n), "cannot open invalid index"
-        self.levels = []
-        owners = []
-        shift = n.bit_length() - 1
-        for _ in range(shift):
-            # siblings side by side in the sorted keys share a parent: a
-            # node that is first under its parent and also last is alone
-            # there, and yields its sibling
-            parents = keys >> 1
-            first = np.empty(keys.size + 1, dtype=bool)
-            first[0] = first[-1] = True
-            np.not_equal(parents[1:], parents[:-1], out=first[1:-1])
-            sib = keys[first[:-1] & first[1:]] ^ 1
-            b = sib >> shift
-            self.levels.append((b, sib & ((1 << shift) - 1)))
-            owners.append(b)
-            keys = parents[first[:-1]]
-            shift -= 1
-        owner = np.concatenate(owners) if owners else np.zeros(0, dtype=np.int64)
-        self.order = np.argsort(owner, kind="stable")
-        self.counts = np.bincount(owner, minlength=B)
+        sets = [np.asarray(s, dtype=np.int64).reshape(-1) for s in index_sets]
+        flat = np.concatenate(sets)
+        assert flat.size == 0 or (flat.min() >= 0 and flat.max() < n), "cannot open invalid index"
+        keys = np.unique(np.repeat(np.arange(len(sets)) * n, [s.size for s in sets]) + flat)
+        depth = n.bit_length() - 1
+        rows = keys >> np.arange(depth + 1)[:, None]          # (depth + 1, k): row l, level l
+        starts = np.ones(rows.shape, dtype=bool)
+        np.not_equal(rows[:, 1:], rows[:, :-1], out=starts[:, 1:])
+        first = np.flatnonzero(starts[:-1])                    # a node's first column, level < depth
+        heads = starts[1:].reshape(-1)[first]                  # ... starts its parent's run
+        alone = heads & np.append(heads[1:], True)
+        at = first[alone]
+        sib = rows[:-1].reshape(-1)[at] ^ 1
+        self.level = at // max(keys.size, 1)
+        shift = depth - self.level
+        self.proof = sib >> shift
+        self.node = sib & ((1 << shift) - 1)
+        self.order = np.argsort(self.proof, kind="stable")
+        self.counts = np.bincount(self.proof, minlength=len(sets))
 
-    def digests(self, levels: Sequence[np.ndarray]) -> np.ndarray:
-        """The siblings' digests (total, DIGEST_LEN) in proof order, from a
-        tree's levels, leaf digests first: stacked (B, n_l, DIGEST_LEN),
-        proof b's tree at [b], or one tree's (n_l, DIGEST_LEN) shared by
-        every proof.  One fancy index a level."""
-        if not self.levels:
-            return np.zeros((0, levels[0].shape[-1]), dtype=np.uint8)
-        parts = [lv[b, i] if lv.ndim == 3 else lv[i] for lv, (b, i) in zip(levels, self.levels)]
-        return np.concatenate(parts)[self.order]
+    def digests(self, tree) -> np.ndarray:
+        """The siblings' digests (total, DIGEST_LEN) in proof order, which
+        ``tree`` serves from its own storage by ``digests_at``: a host
+        MerkleTree (one tree shared by every proof, or B trees' stacked
+        levels), a DeviceMerkleTree or a ForestTree
+        (commit/device_merkle.py)."""
+        if not self.level.size:
+            return np.zeros((0, DIGEST_LEN), dtype=np.uint8)
+        return tree.digests_at(self.level, self.proof, self.node)[self.order]
 
 
 def open_multi(tree, indices) -> List[bytes]:
     """Minimal batched authentication proof for a SET of leaf indices:
     level by level, only siblings that cannot be recomputed from below, in
-    sorted-index order (the verifier reproduces it exactly).  A tree on
-    the card serves the same bytes through its own gather.  One set walks
-    with Python sets: below about a hundred indices that is faster than
-    ``MultiproofWalk``'s numpy levels, whose cost a level a batch of sets
-    shares."""
-    if hasattr(tree, "multiproof"):
-        return tree.multiproof(indices)
-    known = sorted(set(indices))
-    proof: List[bytes] = []
-    for level in tree.levels[:-1]:
-        known_set = set(known)
-        for i in known:
-            if i ^ 1 not in known_set:
-                proof.append(level[i ^ 1].tobytes())
-        known = sorted({i >> 1 for i in known})
-    return proof
+    sorted-index order (the verifier reproduces it exactly).  The walk of
+    one set, over any kind of tree."""
+    return [d.tobytes() for d in MultiproofWalk([list(indices)], len(tree)).digests(tree)]
 
 
 def verify_multi(

@@ -12,10 +12,11 @@ phases (pipeline, commit, combination, fri, openings), the part
 zerofiers; their public keys are one H2 launch and their interpolants
 one evaluation.  The host trees (N1) of a commitment or a FRI round are
 hashed for the whole batch at once (commit/merkle.py:paired_levels), and
-the batch's proofs are opened together: a tree's multiproofs for all B
-by one sibling walk (commit/merkle.py:MultiproofWalk), its values by one
-gather, each encoded in bulk (transcript/codec.py); ``multiproofs``
-counts them.  FRI
+the batch's proofs are opened together, by the routines of the one-proof
+prover at B proofs (protocols/fri.py:Fri.queries,
+protocols/fast_stark.py:FastStark.open_linked): a tree's multiproofs for
+all B by one sibling walk, its values by one gather, each encoded in
+bulk.  FRI
 folds the whole batch on the device at every B, one H7 launch a round
 (field/kernels.py:fri_fold_batched): the JAX package's host branch below
 B*N = 2^14 (HOST_FRI_MAX) is not ported, since the card's fold is faster
@@ -35,14 +36,13 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..commit.merkle import MultiproofWalk, open_multi, paired_levels
+from ..commit.merkle import MerkleTree, paired_levels
 from ..config import RPSSS_CONFIG
 from ..field import kernels as K
 from ..field.limbs import NLIMBS
 from ..field.scalar import Field, FieldElement
 from ..models import rescue_prime as RP
 from ..protocols.fast_stark import FastStark, TransitionZerofier
-from ..commit.device_merkle import gather_rows
 from ..transcript import codec
 from ..transcript.proof_stream import SignatureProofStream
 from ..utils.convert import canonical_np, device_from_ints, ints_from_device, limb_rows_np
@@ -80,9 +80,6 @@ class BatchProver:
         self.air = air if air is not None else rp.transition_constraints(stark.omicron)
         self._air_constants = RP.rescue_air_tables(stark)
         self._on_device = {stark.device: self}
-        # the last batch's multiproofs: opened by one walk for the batch,
-        # or one tree at a time (a transition zerofier tree on the card)
-        self.multiproofs = {"batched": 0, "single": 0}
 
     def _prover_on(self, device) -> "BatchProver":
         """The prover of this one's parameters on ``device``."""
@@ -143,12 +140,10 @@ class BatchProver:
         dev = stark.device
         B = len(inputs)
         R = stark.num_registers
-        N = stark.fri_domain_length
         nrand = stark.num_randomizers
 
         max_degree = len(poly_vals) // B - 1
         timer = stark.timer
-        self.multiproofs = {"batched": 0, "single": 0}
 
         with timer.phase(STATEMENTS):
             sk_dev = device_from_ints([inp.value for inp in inputs], dev)
@@ -198,49 +193,14 @@ class BatchProver:
             combos = combination(bq_lde, tq_lde, rand_lde, weights, tq_shift, bq_shift)
 
         with timer.phase("fri"):
-            indices_per_proof = self._fri_batch(combos, proof_streams)
+            top = self._fri_batch(combos, proof_streams)
 
         with timer.phase("openings"):
-            opened = [(bq_np[:, s], [lv[:, s] for lv in bq_levels]) for s in range(R)]
-            opened.append((rand_np, rand_levels))
-            self._open(proof_streams, indices_per_proof, opened)
+            opened = [(bq_np[:, s], MerkleTree.of_levels([lv[:, s] for lv in bq_levels])) for s in range(R)]
+            opened += [(rand_np, MerkleTree.of_levels(rand_levels)), (self.tz.rows, self.tz.tree)]
+            stark.open_linked(proof_streams, top, opened)
             proofs = [ps.serialize() for ps in proof_streams]
         return proofs
-
-    def _open(self, proof_streams: List, indices_per_proof: List[List[int]], opened: List) -> None:
-        """The linked openings of every proof (paired leaves: a multiproof
-        over the reduced index set, values at the full quadrupled set), for
-        the batch at once: the index sets as (B, ...) arrays, one sibling
-        walk for every tree (commit/merkle.py:MultiproofWalk), and per tree
-        one gather of the values and one of the digests, encoded in bulk.
-        ``opened`` holds each tree's canonical rows (B, N, L) and stacked
-        levels, in the transcript's order; the transition zerofier's tree
-        comes last, shared by the batch."""
-        stark = self.stark
-        N = stark.fri_domain_length
-        top = np.asarray(indices_per_proof, dtype=np.int64)              # (B, T)
-        B = len(top)
-        duplicated = np.concatenate([top, (top + stark.expansion_factor) % N], axis=1)
-        quadrupled = np.sort(np.concatenate([duplicated, (duplicated + N // 2) % N], axis=1), axis=1)
-        leaves = duplicated % (N // 2)
-        walk = MultiproofWalk(leaves, N // 2)
-        tz = self.tz
-        on_card = hasattr(tz.tree, "multiproof")       # a DeviceMerkleTree: one tree at a time
-        if not on_card:
-            opened = opened + [(tz.rows, tz.tree.levels)]
-        proof = np.arange(B)[:, None]
-        runs = []
-        for rows, levels in opened:
-            values = rows[quadrupled] if rows.ndim == 2 else rows[proof, quadrupled]
-            runs.append((codec.encode_felt_lists(values)[:, None],)
-                        + codec.encode_bytes_lists(walk.digests(levels), walk.counts))
-        self.multiproofs["batched"] += B * len(runs)
-        _push_runs(proof_streams, runs)
-        if on_card:
-            for i, ps in enumerate(proof_streams):
-                ps.push(gather_rows(tz.rows, quadrupled[i].tolist()))
-                ps.push(open_multi(tz.tree, leaves[i].tolist()))
-            self.multiproofs["single"] += B
 
     # ------------------------------------------------------------------
     def _fri_batch(self, codewords: torch.Tensor, proof_streams: List) -> List[List[int]]:
@@ -249,24 +209,22 @@ class BatchProver:
         ``Fri.prove_host``.  A round copies the canonical layer (B, n, L)
         to the host once, builds one paired-leaf tree per proof (N1),
         draws the B challenges and folds the batch in one H7 launch, whose
-        canonical output is the next round's layer.  Then, per proof, the
-        last layer in the clear and the index draw; then the query rounds
-        of the whole batch, a layer's multiproofs by one walk.  Returns
-        each proof's top-level indices."""
+        canonical output is the next round's layer.  Then each proof's
+        last layer in the clear, and the query rounds of the whole batch
+        (``Fri.queries``).  Returns each proof's top-level indices."""
         fri = self.stark.fri
         timer = self.stark.timer
-        B = codewords.shape[0]
         dev = codewords.device
         u = fri._initial_u(dev)
         codeword = codewords.contiguous()
-        trees = []                                     # per round, the stacked levels
+        trees = []                                     # per round, the B trees' stacked levels
         num = fri.num_rounds()
         with timer.phase("fri.rounds"):
             layers = [canonical_np(codeword)]              # per round (B, n, L)
             for r in range(num):
-                trees.append(paired_levels(layers[-1]))
+                trees.append(MerkleTree.of_levels(paired_levels(layers[-1])))
                 for i, ps in enumerate(proof_streams):
-                    ps.push(trees[-1][-1][i, 0].tobytes())
+                    ps.push(trees[-1].levels[-1][i, 0].tobytes())
                 if r == num - 1:
                     break
                 alphas = [self.field.sample(ps.prover_fiat_shamir()).value for ps in proof_streams]
@@ -274,47 +232,13 @@ class BatchProver:
                 codeword, canon, u = K.fri_fold_batched(codeword, u, alpha_dev)
                 layers.append(limb_rows_np(canon))
 
-        # per proof, the last layer in the clear and the index draw, each
-        # from its own transcript; then every query layer for the batch at
-        # once (Fri.query's pushes: the (a, b) pairs, then one multiproof)
         with timer.phase("fri.queries"):
             last = codec.encode_felt_lists(layers[-1])
-            indices_per_proof = []
             for i, ps in enumerate(proof_streams):
                 ps.push_encoded(last[i].tobytes(), (last.shape[1],))
-                indices_per_proof.append(fri.sample_indices(
-                    ps.prover_fiat_shamir(),
-                    layers[0].shape[1] // 2,
-                    layers[-1].shape[1],
-                    fri.num_colinearity_tests,
-                ))
-            indices = np.asarray(indices_per_proof, dtype=np.int64)       # (B, T)
-            proof = np.arange(B)[:, None]
-            runs = []
-            for rr in range(len(layers) - 1):
-                half = layers[rr].shape[1] // 2
-                indices = indices % half
-                pairs = np.stack([layers[rr][proof, indices], layers[rr][proof, indices + half]], axis=2)
-                walk = MultiproofWalk(indices, half)
-                runs.append((codec.encode_felt_tuples(pairs),)
-                            + codec.encode_bytes_lists(walk.digests(trees[rr]), walk.counts))
-            self.multiproofs["batched"] += B * len(runs)
-            _push_runs(proof_streams, runs)
-        return indices_per_proof
-
-
-def _push_runs(proof_streams: List, runs: List) -> None:
-    """Push into each proof's transcript, run by run, a run's objects of
-    one size, then its multiproof.  A run is (objects, data, ends): the
-    objects' encodings (B, k, w) uint8 and the multiproofs' as
-    codec.encode_bytes_lists gives them."""
-    bounds = [(np.concatenate([[0], ends[:-1]]), ends) for _, _, ends in runs]
-    for i, ps in enumerate(proof_streams):
-        data, sizes = [], []
-        for (objects, proofs, _), (lo, hi) in zip(runs, bounds):
-            data += [objects[i].tobytes(), proofs[lo[i]:hi[i]].tobytes()]
-            sizes += [objects.shape[2]] * objects.shape[1] + [hi[i] - lo[i]]
-        ps.push_encoded(b"".join(data), sizes)
+            top = fri.draw_indices(proof_streams)
+            fri.queries(layers, trees, top, proof_streams)
+        return top.tolist()
 
 
 def make_batch_rpsss(device=None, urandom=os.urandom, config=None):

@@ -48,13 +48,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..commit.device_merkle import (
-    device_commit_paired,
-    device_commit_paired_many,
-    gather_rows,
-    use_device_commit,
-)
-from ..commit.merkle import MerkleTree, open_multi, verify_multi
+from ..commit.device_merkle import device_commit_paired, device_commit_paired_many, use_device_commit
+from ..commit.merkle import MerkleTree, MultiproofWalk, verify_multi
 from ..errors import MalformedProof, VerificationError, rejects_malformed
 from ..field import kernels as K
 from ..field import ops as F
@@ -64,8 +59,9 @@ from ..ops import ntt as NTT
 from ..ops.domain import DOMAINS, mont_const
 from ..poly.host_ntt import host_zerofier
 from ..poly.multivariate import MPolynomial
-from ..transcript.proof_stream import ProofStream
-from ..utils.convert import canonical_np, device_from_ints, ints_from_device
+from ..transcript import codec
+from ..transcript.proof_stream import ProofStream, push_runs
+from ..utils.convert import canonical_np, device_from_ints, gather_limbs, ints_from_device
 from ..utils.profiling import PhaseTimer, device_sync
 from ..utils.rand import bulk_random_mont
 from .stark import Boundary, StarkParams
@@ -512,19 +508,32 @@ class FastStark(StarkParams):
             indices = self._fri(combo, proof_stream)
             del combo
 
-        # linked openings at quadrupled indices (reference: fast_stark.py:154-177)
         with timer.phase("openings"):
-            duplicated = indices + [(i + self.expansion_factor) % N for i in indices]
-            quadrupled = sorted(duplicated + [(i + N // 2) % N for i in duplicated])
-            leaf_indices = sorted({i % (N // 2) for i in duplicated})
-            for s in range(R):
-                proof_stream.push(gather_rows(bq_rows[s], quadrupled))
-                proof_stream.push(open_multi(bq_trees[s], leaf_indices))
-            proof_stream.push(gather_rows(rand_rows, quadrupled))
-            proof_stream.push(open_multi(rand_tree, leaf_indices))
-            proof_stream.push(gather_rows(transition_zerofier.rows, quadrupled))
-            proof_stream.push(open_multi(transition_zerofier.tree, leaf_indices))
+            opened = list(zip(bq_rows, bq_trees)) + [
+                (rand_rows, rand_tree), (transition_zerofier.rows, transition_zerofier.tree)]
+            self.open_linked([proof_stream], [indices], opened)
         return proof_stream.serialize()
+
+    def open_linked(self, proof_streams: Sequence[ProofStream], top, opened: Sequence) -> None:
+        """The linked openings of B proofs at once, B = 1 for ``prove``
+        (reference: fast_stark.py:154-177): per opened tree, the values at
+        the quadrupled index set and one multiproof over the paired leaves
+        of the duplicated set.  ``top`` (B, T) holds each proof's FRI
+        top-level indices; ``opened`` each tree's (rows, tree) in the
+        transcript's order, as FRI's ``queries`` takes a layer (stacked
+        ones give proof b its own).  The index sets are (B, ...) arrays
+        formed once, one walk serves every tree, and a tree's values are
+        one gather."""
+        N = self.fri_domain_length
+        top = np.asarray(top, dtype=np.int64)
+        duplicated = np.concatenate([top, (top + self.expansion_factor) % N], axis=1)
+        quadrupled = np.sort(np.concatenate([duplicated, (duplicated + N // 2) % N], axis=1), axis=1)
+        walk = MultiproofWalk(duplicated % (N // 2), N // 2)
+        push_runs(proof_streams, [
+            (codec.encode_felt_lists(gather_limbs(rows, quadrupled))[:, None],)
+            + codec.encode_bytes_lists(walk.digests(tree), walk.counts)
+            for rows, tree in opened
+        ])
 
     # ------------------------------------------------------------------
     # verifier (host scalar; mirrors reference fast_stark.py:180-286)

@@ -20,6 +20,9 @@ checks.  Two provers give the same transcript:
   (``HOST_TAIL_MAX``: below it the remaining rounds fold host ints);
 * ``prove_host`` folds canonical ints on the host and hashes with N1.
 
+Both, and the batch prover (parallel/batch_prover.py), answer the queries
+through one routine, ``queries``, for B proofs at once.
+
 Deliberate deviations (documented in DEVIATIONS.md): index-sampling counter
 bytes use a fixed-width encoding, and colinearity accepts degree <= 1.
 """
@@ -27,21 +30,23 @@ bytes use a fixed-width encoding, and colinearity accepts degree <= 1.
 from __future__ import annotations
 
 from hashlib import blake2b
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..commit import kernels as MK
 from ..commit.device_merkle import DeviceMerkleTree, DeviceRows, device_commit_paired
-from ..commit.merkle import MerkleTree, open_multi, verify_multi
+from ..commit.merkle import MerkleTree, MultiproofWalk, verify_multi
 from ..errors import MalformedProof, VerificationError, rejects_malformed
 from ..field import kernels as K
 from ..field import ops as F
 from ..field.scalar import Field, P
 from ..ops.domain import power_table
 from ..poly.host_ntt import intt_ints
-from ..transcript.proof_stream import ProofStream
-from ..utils.convert import gather_rows
+from ..transcript import codec
+from ..transcript.proof_stream import ProofStream, push_runs
+from ..utils.convert import gather_limbs, gather_rows
 from ..utils.profiling import PhaseTimer
 
 _TWO_INV = pow(2, P - 2, P)
@@ -124,10 +129,6 @@ class Fri:
             out.append(x)
             x = x * self.omega % P
         return out
-
-    @staticmethod
-    def _layer_len(layer) -> int:
-        return len(layer) if isinstance(layer, list) else layer.shape[0]
 
     # -- device prover -------------------------------------------------------
     def _initial_u(self, device) -> torch.Tensor:
@@ -216,36 +217,40 @@ class Fri:
         )
         layers, trees = self.commit(codeword, proof_stream, timer)
         with timer.phase("fri.queries"):
-            top_level_indices = self.sample_indices(
-                proof_stream.prover_fiat_shamir(),
-                self._layer_len(layers[0]) // 2,
-                self._layer_len(layers[-1]),
-                self.num_colinearity_tests,
-            )
-            indices = list(top_level_indices)
-            for i in range(len(layers) - 1):
-                indices = [idx % (self._layer_len(layers[i]) // 2) for idx in indices]
-                self.query(layers[i], trees[i], indices, proof_stream)
-        return top_level_indices
+            top = self.draw_indices([proof_stream])
+            self.queries(layers, trees, top, [proof_stream])
+        return top[0].tolist()
 
-    def query(
-        self,
-        current_layer,
-        current_tree: MerkleTree,
-        c_indices: List[int],
-        proof_stream: ProofStream,
-    ):
-        """Reveal, per test, the paired leaf (a, b) = (layer[i], layer[i+half])
-        at i = c_indices[s], plus ONE multiproof for the whole index set."""
-        half = self._layer_len(current_layer) // 2
-        idx = [c_indices[s] for s in range(self.num_colinearity_tests)]
-        vals = gather_rows(
-            current_layer, idx + [i + half for i in idx]
-        )
-        for s in range(self.num_colinearity_tests):
-            proof_stream.push((vals[s], vals[s + len(idx)]))
-        proof_stream.push(open_multi(current_tree, c_indices))
-        return c_indices
+    def draw_indices(self, proof_streams: Sequence[ProofStream]) -> np.ndarray:
+        """Each of B transcripts' top-level query indices, (B, T), drawn
+        after its last layer."""
+        return np.array([
+            self.sample_indices(ps.prover_fiat_shamir(), self.domain_length // 2,
+                                self.domain_length >> (self.num_rounds() - 1), self.num_colinearity_tests)
+            for ps in proof_streams
+        ], dtype=np.int64)
+
+    def queries(self, layers: Sequence, trees: Sequence, top: np.ndarray,
+                proof_streams: Sequence[ProofStream]) -> None:
+        """The query rounds of B proofs at once, B = 1 for a one-proof
+        prover: per layer but the last, the paired leaf (a, b) =
+        (layer[i], layer[i + half]) at each of a proof's reduced indices i
+        (``top`` (B, T) reduced mod half) and ONE multiproof for its set.
+        ``layers[r]`` is what utils/convert.py:gather_limbs reads (stacked
+        (B, n, NLIMBS) rows give proof b its own) and ``trees[r]`` any tree
+        a MultiproofWalk opens (B trees' stacked levels give proof b its
+        own): a layer's values are one gather, its multiproofs one walk,
+        both encoded in bulk."""
+        indices = np.asarray(top, dtype=np.int64)
+        runs = []
+        for r in range(len(layers) - 1):
+            half = self.domain_length >> (r + 1)
+            indices = indices % half
+            pairs = gather_limbs(layers[r], np.stack([indices, indices + half], axis=-1))
+            walk = MultiproofWalk(indices, half)
+            runs.append((codec.encode_felt_tuples(pairs),)
+                        + codec.encode_bytes_lists(walk.digests(trees[r]), walk.counts))
+        push_runs(proof_streams, runs)
 
     # -- host prover -----------------------------------------------------------
     def _host_u(self) -> List[int]:
@@ -292,22 +297,9 @@ class Fri:
             codeword = self._fold_ints(codeword, u, alpha)
             u = [v * v % P for v in u[: half // 2]]
         proof_stream.push(list(layers[-1]))
-
-        top_level_indices = self.sample_indices(
-            proof_stream.prover_fiat_shamir(),
-            len(layers[0]) // 2,
-            len(layers[-1]),
-            self.num_colinearity_tests,
-        )
-        indices = list(top_level_indices)
-        for i in range(len(layers) - 1):
-            half = len(layers[i]) // 2
-            indices = [idx % half for idx in indices]
-            layer = layers[i]
-            for s in range(self.num_colinearity_tests):
-                proof_stream.push((layer[indices[s]], layer[indices[s] + half]))
-            proof_stream.push(open_multi(trees[i], indices))
-        return top_level_indices
+        top = self.draw_indices([proof_stream])
+        self.queries(layers, trees, top, [proof_stream])
+        return top[0].tolist()
 
     # -- verifier (host scalar) ----------------------------------------------
     @rejects_malformed
@@ -379,7 +371,7 @@ class Fri:
         )
 
         # pull all query-round reveals: per round, `tests` paired-leaf
-        # tuples (a, b) and ONE multiproof (prover: query())
+        # tuples (a, b) and ONE multiproof (prover: queries())
         num_query_rounds = self.num_rounds() - 1
         reveals: List[Tuple[List[Tuple[int, int]], List[bytes]]] = []
         for r in range(num_query_rounds):

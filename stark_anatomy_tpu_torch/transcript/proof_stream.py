@@ -116,3 +116,17 @@ class SignatureProofStream(ProofStream):
         for obj in codec.deserialize(data):
             ps.push(obj)
         return ps
+
+
+def push_runs(proof_streams: Sequence[ProofStream], runs: Sequence) -> None:
+    """Push into each of B transcripts, run by run, a run's objects of one
+    size, then its multiproof.  A run is (objects, data, ends): the
+    objects' encodings (B, k, w) uint8 and the B multiproofs as
+    codec.encode_bytes_lists gives them."""
+    bounds = [(np.concatenate([[0], ends[:-1]]), ends) for _, _, ends in runs]
+    for i, ps in enumerate(proof_streams):
+        data, sizes = [], []
+        for (objects, proofs, _), (lo, hi) in zip(runs, bounds):
+            data += [objects[i].tobytes(), proofs[lo[i]:hi[i]].tobytes()]
+            sizes += [objects.shape[2]] * objects.shape[1] + [hi[i] - lo[i]]
+        ps.push_encoded(b"".join(data), sizes)

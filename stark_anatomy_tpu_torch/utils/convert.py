@@ -70,13 +70,31 @@ def int_from_row(row: np.ndarray) -> int:
     return acc
 
 
-def gather_rows(rows, indices) -> List[int]:
-    """Canonical ints at ``indices`` of a layer held on the card
-    (commit/device_merkle.py:DeviceRows, one gather), as element-major
-    numpy rows or as a host int list (the port of
-    stark_anatomy_tpu/commit/device_merkle.py:gather_rows)."""
-    if hasattr(rows, "gather"):
-        return rows.gather(indices)
+def rows_from_ints(values: Sequence[int]) -> np.ndarray:
+    """Canonical ints -> element-major limb rows (len, NLIMBS) uint32, read
+    from one byte string."""
+    data = b"".join(v.to_bytes(ELEMENT_BYTES, "little") for v in values)
+    return np.frombuffer(data, dtype="<u2").reshape(-1, NLIMBS).astype(np.uint32)
+
+
+def gather_limbs(rows, indices) -> np.ndarray:
+    """Canonical element-major limb rows (..., NLIMBS) at an index array
+    (...) of a layer: held on the card or as a forest's blocks (its
+    ``limbs_at``: one gather), as a host int list, or as element-major
+    numpy rows, (n, NLIMBS) or stacked (B, n, NLIMBS), whose proof b reads
+    its own rows at indices[b]."""
+    if hasattr(rows, "limbs_at"):
+        return rows.limbs_at(indices)
+    idx = np.asarray(indices, dtype=np.int64)
     if isinstance(rows, list):
-        return [rows[i] for i in indices]
-    return ints_from_rows(rows[list(indices)])
+        return rows_from_ints([rows[i] for i in idx.reshape(-1).tolist()]).reshape(idx.shape + (NLIMBS,))
+    if rows.ndim == 3:
+        return rows[np.arange(len(rows)).reshape((-1,) + (1,) * (idx.ndim - 1)), idx]
+    return rows[idx]
+
+
+def gather_rows(rows, indices) -> List[int]:
+    """Canonical ints at ``indices`` of a layer, as ``gather_limbs`` reads
+    it (the port of stark_anatomy_tpu/commit/device_merkle.py:
+    gather_rows)."""
+    return ints_from_rows(gather_limbs(rows, list(indices)))

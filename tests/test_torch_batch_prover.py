@@ -24,6 +24,8 @@ from stark_anatomy_tpu.models.rescue_prime import RescuePrime as JaxRescuePrime
 from stark_anatomy_tpu.parallel.batch_prover import BatchProver as JaxBatchProver
 from stark_anatomy_tpu.protocols.fast_stark import FastStark as JaxFastStark
 from stark_anatomy_tpu.transcript.proof_stream import SignatureProofStream as JaxSPS
+from stark_anatomy_tpu_torch.commit.device_merkle import DeviceMerkleTree
+from stark_anatomy_tpu_torch.commit.merkle import MultiproofWalk
 from stark_anatomy_tpu_torch.field.limbs import NLIMBS
 from stark_anatomy_tpu_torch.field.scalar import P
 from stark_anatomy_tpu_torch.models import rescue_prime as RP
@@ -168,32 +170,56 @@ def test_the_batch_s_boundary_tables_are_each_statement_s(port_prover):
         assert torch.equal(interp[i], alone_ip), i
 
 
-def test_the_batch_opens_every_multiproof_by_one_walk(port_prover, port_proofs):
+def walks_served(monkeypatch) -> tuple:
+    """(walks, served): each walk's number of index sets as it is made,
+    and each tree it opens, as (type, number of proofs)."""
+    walks, served = [], []
+    make, digests = MultiproofWalk.__init__, MultiproofWalk.digests
+
+    def counted_make(self, index_sets, n):
+        make(self, index_sets, n)
+        walks.append(len(self.counts))
+
+    def counted_digests(self, tree):
+        served.append((type(tree), len(self.counts)))
+        return digests(self, tree)
+
+    monkeypatch.setattr(MultiproofWalk, "__init__", counted_make)
+    monkeypatch.setattr(MultiproofWalk, "digests", counted_digests)
+    return walks, served
+
+
+def test_the_batch_opens_every_multiproof_by_one_walk(port_prover, port_proofs, monkeypatch):
     """Every multiproof of a batch, the R + 2 opened trees' and each FRI
-    query layer's, comes from the batched walk, none one tree at a time,
-    and a second batch from the same draws gives the same bytes."""
+    query layer's, is served by a walk of all B index sets: one walk for
+    the linked openings and one a query layer.  A second batch from the
+    same draws gives the same bytes."""
     stark = port_prover.stark
+    walks, served = walks_served(monkeypatch)
     again = port_prover.prove_batch(inputs(), [SignatureProofStream(d) for d in DOCS],
                                     urandom=det_urandom(SEED))
     assert again == port_proofs
-    per_proof = stark.num_registers + 2 + stark.fri.num_rounds() - 1
-    assert port_prover.multiproofs == {"batched": B * per_proof, "single": 0}
+    layers = stark.fri.num_rounds() - 1
+    assert walks == [B] * (layers + 1)
+    assert [b for _, b in served] == [B] * (layers + stark.num_registers + 2)
 
 
-def test_a_zerofier_tree_on_the_device_is_opened_one_proof_at_a_time(port_proofs, monkeypatch):
+def test_a_zerofier_tree_on_the_device_is_opened_by_the_same_walk(port_proofs, monkeypatch):
     """With the transition zerofier committed on the device path (a
-    DeviceMerkleTree, H4's plain version here), its openings go proof by
-    proof through the tree's own multiproof, the rest by the walk, and
-    the proofs are the same bytes."""
+    DeviceMerkleTree, H4's plain version here), the walk that opens the
+    batch's other trees opens it too, for all B proofs, and the proofs
+    are the same bytes."""
     rp = RescuePrime()
     stark = FastStark(FIELD, 4, 2, 4, rp.m, rp.N + 1, transition_constraints_degree=3, device="cpu")
     monkeypatch.setenv("STARK_TPU_DEVICE_HASH", "1")
     tz = stark.preprocess()
     monkeypatch.delenv("STARK_TPU_DEVICE_HASH")
-    assert hasattr(tz.tree, "multiproof")
+    assert isinstance(tz.tree, DeviceMerkleTree)
     prover = BatchProver(stark, rp, tz)
+    walks, served = walks_served(monkeypatch)
     proofs = prover.prove_batch(inputs(), [SignatureProofStream(d) for d in DOCS],
                                 urandom=det_urandom(SEED))
     assert proofs == port_proofs
-    per_proof = stark.num_registers + 1 + stark.fri.num_rounds() - 1
-    assert prover.multiproofs == {"batched": B * per_proof, "single": B}
+    opened = served[stark.fri.num_rounds() - 1:]           # after FRI's query layers
+    assert opened[-1] == (DeviceMerkleTree, B) and len(opened) == stark.num_registers + 2
+    assert walks[-1] == B and len(walks) == stark.fri.num_rounds()

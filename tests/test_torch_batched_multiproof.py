@@ -1,12 +1,15 @@
 """Opening a batch of trees at once: ``MultiproofWalk`` and the bulk codec.
 
-The batch prover opens each tree of a batch for all B proofs by one
-sibling walk (commit/merkle.py:MultiproofWalk), gathers the digests with
-one index a level, and encodes them, the opened values and FRI's (a, b)
-pairs with numpy (transcript/codec.py); ``ProofStream.push_encoded``
-takes the bytes.  Each is held here to the plain per-proof form: the
-set walk of ``open_multi`` followed by ``codec.encode_obj``, and one
-``push`` an object.
+Every prover opens its trees by one sibling walk
+(commit/merkle.py:MultiproofWalk), for B proofs at once, and each kind of
+tree serves the digests the walk names from its own storage: host
+levels (stacked for a batch, or one tree shared by every proof) with one
+index a level, a DeviceMerkleTree (H4's plain version here) with one
+gather, a forest of host or device subtrees with one gather a subtree.
+The digests, the opened values and FRI's (a, b) pairs are encoded with
+numpy (transcript/codec.py); ``ProofStream.push_encoded`` takes the
+bytes.  Each is held here to the plain per-proof form: the set walk
+below followed by ``codec.encode_obj``, and one ``push`` an object.
 """
 
 import random
@@ -14,22 +17,33 @@ import random
 import numpy as np
 import pytest
 
+import torch
+
+from stark_anatomy_tpu_torch.commit.device_merkle import DeviceMerkleTree, DeviceRows, commit_forest
 from stark_anatomy_tpu_torch.commit.hashing import blake2s_digest
+from stark_anatomy_tpu_torch.commit.kernels import merkle_paired
 from stark_anatomy_tpu_torch.commit.merkle import (
     MerkleTree,
     MultiproofWalk,
+    open_multi,
     paired_levels,
     paired_trees,
     verify_multi,
 )
+from stark_anatomy_tpu_torch.field import ops as F
 from stark_anatomy_tpu_torch.field.limbs import NLIMBS, int_to_limbs
 from stark_anatomy_tpu_torch.field.scalar import P
+from stark_anatomy_tpu_torch.parallel.mesh import Mesh, Sharded
+from stark_anatomy_tpu_torch.parallel.sharded_stark import Paired
 from stark_anatomy_tpu_torch.transcript import codec
 from stark_anatomy_tpu_torch.transcript.proof_stream import ProofStream, SignatureProofStream
+from stark_anatomy_tpu_torch.utils.convert import gather_limbs
+
+torch.set_num_threads(1)
 
 
 def plain_open_multi(tree: MerkleTree, indices) -> list:
-    """The per-proof set walk, as open_multi on a host tree walks it."""
+    """The per-proof set walk over a host tree's levels."""
     known = sorted(set(indices))
     proof = []
     for level in tree.levels[:-1]:
@@ -72,6 +86,22 @@ def split(walk: MultiproofWalk, digests: np.ndarray) -> list:
     return out
 
 
+def card_trees(codeword: np.ndarray, tree: str):
+    """(rows, tree) of one canonical codeword (2n, NLIMBS) as the card
+    holds it: a DeviceMerkleTree, or a forest of S host or device
+    subtrees ("forest-S-host", "forest-S-device") from a local mesh's pair
+    blocks."""
+    canon = torch.from_numpy(np.ascontiguousarray(codeword.T.astype(np.int32)))
+    if tree == "device":
+        return DeviceRows(canon), DeviceMerkleTree(merkle_paired(canon))
+    _, S, where = tree.split("-")
+    S = int(S)
+    mesh = Mesh([[torch.device("cpu")] * S])
+    paired = Paired.of(Sharded.place(mesh, F.to_mont(canon)))
+    return commit_forest(paired.blocks, canon.shape[-1], S, where == "device")[0]
+
+
+CARD_TREES = ["device", "forest-2-host", "forest-2-device", "forest-4-host", "forest-4-device"]
 CASES = [
     (B, n, kind)
     for B, n, kind in [
@@ -81,44 +111,63 @@ CASES = [
         (64, 128, "single"), (1, 2048, "duplicates"), (3, 2048, "mixed"), (64, 2048, "mixed"),
     ]
 ]
+# host levels, stacked and shared, under each case's own id; then the
+# trees on the card, shared by every proof of the case
+WALK_CASES = [pytest.param(B, n, kind, "host", id=f"{B}-{n}-{kind}") for B, n, kind in CASES] + [
+    pytest.param(B, n, kind, tree, id=f"{B}-{n}-{kind}-{tree}")
+    for B, n, kind in CASES for tree in CARD_TREES if not tree.startswith("forest-4") or n >= 4
+]
 
 
-@pytest.mark.parametrize("B,n,kind", CASES)
-def test_the_walk_gives_each_proof_its_set_walk_s_multiproof(B, n, kind):
-    """The batched walk over stacked levels (``paired_levels``) and over
-    one shared tree, encoded by ``encode_bytes_lists``: each proof's
-    digests and bytes are its own set walk's, and each verifies."""
+@pytest.mark.parametrize("B,n,kind,tree", WALK_CASES)
+def test_the_walk_gives_each_proof_its_set_walk_s_multiproof(B, n, kind, tree):
+    """The batched walk over stacked levels (``paired_levels``), over one
+    shared host tree, and over one shared tree on the card or in a forest,
+    encoded by ``encode_bytes_lists``: each proof's digests and bytes are
+    its own set walk's, and each verifies.  ``open_multi`` is the walk of
+    one set, and the card's trees give their opened values as the host
+    rows hold them."""
     layers = codewords(B, n, seed=B * n)
-    stacked = paired_levels(layers)
     trees = paired_trees(layers)
     sets = index_sets(kind, B, n, seed=n + B)
     walk = MultiproofWalk(sets, n)
     assert walk.counts.tolist() == [len(plain_open_multi(trees[b], sets[b])) for b in range(B)]
-    for levels, tree_of in [(stacked, lambda b: trees[b]), (trees[0].levels, lambda b: trees[0])]:
-        digests = walk.digests(levels)
+    if tree == "host":
+        served = [(MerkleTree.of_levels(paired_levels(layers)), lambda b: trees[b]),
+                  (trees[0], lambda b: trees[0])]
+    else:
+        rows, card = card_trees(layers[0], tree)
+        assert card.root == trees[0].root and len(card) == n
+        idx = np.asarray(sets[0][:8] + [0, 2 * n - 1], dtype=np.int64)
+        assert np.array_equal(gather_limbs(rows, idx), layers[0][idx])
+        served = [(card, lambda b: trees[0])]
+    for served_tree, tree_of in served:
+        digests = walk.digests(served_tree)
         data, ends = codec.encode_bytes_lists(digests, walk.counts)
         starts = [0] + ends[:-1].tolist()
         for b, proof in enumerate(split(walk, digests)):
-            tree = tree_of(b)
-            expected = plain_open_multi(tree, sets[b])
+            plain = tree_of(b)
+            expected = plain_open_multi(plain, sets[b])
             assert proof == expected, (b, kind)
             assert data[starts[b]:ends[b]].tobytes() == codec.encode_obj(expected)
-            leaves = {i: tree.levels[0][i].tobytes() for i in sets[b]}
-            assert verify_multi(tree.root, len(tree.levels) - 1, leaves, proof)
+            leaves = {i: plain.levels[0][i].tobytes() for i in sets[b]}
+            assert verify_multi(plain.root, len(plain.levels) - 1, leaves, proof)
+    assert open_multi(served[-1][0], sets[0]) == plain_open_multi(trees[0], sets[0])
 
 
 def test_a_walk_of_no_levels_and_of_no_index():
     """A tree of one leaf has no sibling to give; a proof with no index
     gives none either, and the others are unmoved."""
-    one = paired_levels(codewords(2, 1, seed=1))
+    one = MerkleTree.of_levels(paired_levels(codewords(2, 1, seed=1)))
     walk = MultiproofWalk([[0], [0]], 1)
     assert walk.counts.tolist() == [0, 0] and walk.digests(one).shape == (0, 32)
     layers = codewords(2, 8, seed=2)
     trees = paired_trees(layers)
+    stacked = MerkleTree.of_levels(paired_levels(layers))
     walk = MultiproofWalk([[], [3, 5]], 8)
-    proofs = split(walk, walk.digests(paired_levels(layers)))
+    proofs = split(walk, walk.digests(stacked))
     assert proofs == [[], plain_open_multi(trees[1], [3, 5])]
-    data, ends = codec.encode_bytes_lists(walk.digests(paired_levels(layers)), walk.counts)
+    data, ends = codec.encode_bytes_lists(walk.digests(stacked), walk.counts)
     assert data[:ends[0]].tobytes() == codec.encode_obj([])
 
 

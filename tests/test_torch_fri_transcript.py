@@ -122,6 +122,8 @@ def test_query_reveals_paired_leaves():
     vals = values(64, 12)
     tree = TM.paired_tree_from_ints(vals)
     ps = TPS()
-    tf.query(vals, tree, [1, 5, 30], ps)
+    # one queried layer: the last layer goes in the clear and is not opened
+    tf.queries([vals, None], [tree, None], np.array([[1, 5, 30]]), [ps])
+    assert len(ps.objects) == 4
     assert ps.objects[:3] == [(vals[1], vals[33]), (vals[5], vals[37]), (vals[30], vals[62])]
     assert ps.objects[3] == TM.open_multi(tree, [1, 5, 30])
