@@ -246,13 +246,17 @@ FOLD_BYTES = 176    # per folded element: c_i, c_{i+h}, u_i read; folded, canon,
 # (stark_anatomy_tpu/parallel/batch_prover.py:9)
 BATCH = 64
 FOLD_BATCHED_SHAPES = ((BATCH, 8, 4096), (BATCH, 8, 512))   # a batch's first FRI round, and its last fold
+# H4 at a batch's own stacks (parallel/batch_prover.py:_commit): its
+# commitment, the R = 2 boundary quotients and the randomizer of each
+# proof, and its four FRI layers, 4096 rows down to 512
+BATCH_TREES = ((BATCH, 3, 8, 4096),) + tuple((BATCH, 1, 8, 4096 >> r) for r in range(4))
 BATCH_KERNELS = ("fri_fold_batched",)        # its record is made, and its launches read, on the batch's path
 L2_BYTES = 50 << 20                          # H100 L2: timed inputs rotate over more than twice this
 SMALL_BATCH = 3                              # the tests' seeded batch (tests/test_torch_batch_prover.py)
 INTERP_SIZES = (16, 256)
 FOLD_BATCHED_BYTES = 128    # per folded element: c_i, c_{i+h} read; folded, canon written
 BATCH_SPANS = ("hash", "sample", "device_from_ints", "_boundary_tables", "pipeline",
-               "canonical_np", "paired_levels", "combination", "_fri_batch", "fri_fold_batched",
+               "merkle_paired", "root_rows", "combination", "_fri_batch", "fri_fold_batched",
                "limb_rows_np", "queries", "open_linked", "digests", "gather_limbs", "serialize")
 LARGE_PHASES = ("trace_gen", "trace_lde", "boundary_quotients", "commit_bq", "air_quotients",
                 "randomizer_poly", "commit_randomizer", "combination", "fri", "openings")
@@ -561,7 +565,7 @@ def profile_sign(sign) -> None:
 # the prover's main steps, and what prove_batch does before its first
 # phase: the host Rescue hash of the boundary, the max-degree bound of the
 # symbolic AIR, the randomness draws and their upload
-HOST_SPANS = ("trace_batch", "pipeline", "paired_levels", "combination",
+HOST_SPANS = ("trace_batch", "pipeline", "merkle_paired", "combination",
               "_fri_batch", "queries", "open_linked", "hash", "max_degree", "sample", "device_from_ints")
 # the steps of a large-trace prove: N2's chain, the boundary tables, the
 # device FRI's rounds and its copy of the last layer, the query rounds and
@@ -1334,6 +1338,23 @@ def batch_path(dev, smi, records, worst_err, compare, scheme) -> None:
     assert not scheme.verify(keys[1][1], docs[0], sigs[0]), "verify accepted another key's pk"
     print(f"  all {BATCH} signatures verify under FastRPSSS ({verify_s:.3f} s, {verify_s / BATCH:.5f} s each); "
           f"a forged document and another key's pk are rejected; {len(sigs[0])} bytes a signature")
+    # the card's tree route (H4) against the host's (N1,
+    # STARK_TPU_DEVICE_HASH=0) on the same draws, byte for byte
+    assert prover.device_trees == (torch.device(dev).type == "cuda"), "the batch took the wrong tree route"
+    saved = os.environ.get("STARK_TPU_DEVICE_HASH")
+    os.environ["STARK_TPU_DEVICE_HASH"] = "0"
+    host_prover = BatchProver(prover.stark, prover.rp, prover.tz, air=prover.air)
+    if saved is None:
+        del os.environ["STARK_TPU_DEVICE_HASH"]
+    else:
+        os.environ["STARK_TPU_DEVICE_HASH"] = saved
+    assert not host_prover.device_trees
+    routes = [bp.prove_batch(sks, [SignatureProofStream(d) for d in docs],
+                             urandom=det_urandom(b"chip smoke tree routes"))
+              for bp in (prover, host_prover)]
+    assert routes[0] == routes[1], "the card's and the host's tree routes gave different batches"
+    print(f"  the card's tree route (H4) and the host's (N1) give the same {BATCH} signatures on the same draws")
+    del host_prover, routes
     # H10 and H11 at the batch's inputs (per-proof boundary tables and
     # weights) against their plain versions, then with the special values;
     # each timed beside its bound
@@ -1956,6 +1977,11 @@ def main() -> int:
             got = MK.merkle_paired(canon_cpu.to(dev))
             torch.cuda.synchronize()
             compare("merkle", f"n={n} R={batch}", got, MK.merkle_paired_plain(canon_cpu))
+    for i, shape in enumerate(BATCH_TREES):
+        canon_cpu = field_inputs(shape, 1050 + i)[0]
+        got = MK.merkle_paired(canon_cpu.to(dev))
+        torch.cuda.synchronize()
+        compare("merkle", f"batch stack {shape}", got, MK.merkle_paired_plain(canon_cpu))
     # N1 against hashlib on the host, the main path's tree size
     rows_4096 = canonical_np(field_inputs(TREE_MAIN, 1100)[0])
     n1_leaves = NB.leaves_from_limb_pairs(rows_4096)
@@ -2127,11 +2153,12 @@ def main() -> int:
     # them (their records)
     air_path(dev, smi, records, worst_err, compare, scheme, sk, pk, sig)
     assert worst_mismatch == 0, "a kernel disagrees with its plain version"
-    # H4, H5 and H6 are not on this path (the sign's codewords are under
-    # DEVICE_COMMIT_MIN, its randomizer under bulk_randomizer_threshold),
-    # nor H1's subtract (the sign's quotients are H10's); phase 5's 2^20
-    # path reads their launches.  H7's record is made in phase 6, which
-    # reads the batch's launches.  H12 is launched by the verify.
+    # H5 and H6 are not on this path (the sign's randomizer is under
+    # bulk_randomizer_threshold), nor H1's subtract (the sign's quotients
+    # are H10's); phase 5's 2^20 path reads their launches, and H4's, which
+    # a sign launches too (the batch prover's trees, B = 1).  H7's record
+    # is made in phase 6, which reads the batch's launches.  H12 is
+    # launched by the verify.
     for name in K.KERNELS:
         if name not in LARGE_KERNELS + SHARDED_ONLY + VERIFY_KERNELS:
             assert sign_launches[name] > 0, f"{name} was not launched during sign"

@@ -6,10 +6,13 @@ The port of stark_anatomy_tpu/commit/device_merkle.py: ``DeviceMerkleTree``,
 forest of a sharded codeword (``commit_forest``, ``ForestTree``,
 ``ForestRows``), the port's own, which commits without gathering.  The
 tree is H4 (commit/kernels.py:merkle_paired) over the canonical limbs
-that one H0 launch makes (``F.from_mont``); only the root and the
+that one H0 launch makes (``F.from_mont``); only the roots and the
 queried digests and values are copied to the host: the digests a
-commit/merkle.py:MultiproofWalk names by one ``index_select`` and one
-copy (``digests_at``), the values likewise (``limbs_at``).  Roots, paths
+commit/merkle.py:MultiproofWalk names by one gather and one copy
+(``digests_at``), the values likewise (``limbs_at``).  A tree and its
+rows hold one codeword, (8, n), or B proofs' codewords stacked, (B, 8,
+n), of which proof b opens its own (the batch prover's,
+parallel/batch_prover.py); the tensor's rank says which.  Roots, paths
 and multiproofs are byte for byte those of the host MerkleTree over the
 same codeword.
 
@@ -38,7 +41,7 @@ from .merkle import MerkleTree, open_multi
 __all__ = [
     "DEVICE_COMMIT_MIN", "DeviceMerkleTree", "DeviceRows", "ForestRows", "ForestTree",
     "commit_forest", "device_commit_paired", "device_commit_paired_many", "gather_rows",
-    "use_device_commit",
+    "root_rows", "use_device_commit",
 ]
 
 # below this many codeword elements the host path is taken, as in the
@@ -51,16 +54,19 @@ def _digest_rows(cols: torch.Tensor) -> np.ndarray:
     return np.ascontiguousarray(cols.cpu().numpy().view(np.uint32).T.astype("<u4")).view(np.uint8)
 
 
-def _digest_bytes(cols: torch.Tensor) -> List[bytes]:
-    """(8, k) digest words on any device -> the k 32-byte digests."""
-    return [d.tobytes() for d in _digest_rows(cols)]
+def root_rows(flat: torch.Tensor) -> np.ndarray:
+    """The roots (k, DIGEST_LEN) uint8 of flat trees (..., 8, n), k =
+    prod(...) in row-major order (1 for one tree): one copy."""
+    return _digest_rows(flat[..., -2].reshape(-1, flat.shape[-2]).T)   # column -1 is the pad
 
 
 class DeviceMerkleTree:
     """A Merkle tree whose levels live on the card, as one flat (8, n)
-    digest-word tensor (leaves first, root at column n - 2, pad last).
-    Same roots, paths and multiproofs as the host MerkleTree; the digests
-    a walk names are one gather over the flat tensor and one copy."""
+    digest-word tensor (leaves first, root at column n - 2, pad last); or
+    B trees stacked, (B, 8, n), one a proof, as the host's stacked levels
+    (commit/merkle.py:paired_levels) hold them.  Same roots, paths and
+    multiproofs as the host MerkleTree; the digests a walk names are one
+    gather over the flat tensor and one copy."""
 
     __slots__ = ("flat", "offsets", "depth", "_root")
 
@@ -69,29 +75,39 @@ class DeviceMerkleTree:
         self.depth = half.bit_length() - 1
         self.offsets = [2 * half - (2 * half >> level) for level in range(self.depth + 1)]
         self.flat = flat
-        if root is None:
-            col = self.offsets[self.depth]
-            root = _digest_bytes(flat[:, col : col + 1])[0]
+        if root is None and flat.dim() == 2:
+            root = self.roots[0].tobytes()
         self._root = root
 
     @property
     def levels(self) -> List[torch.Tensor]:
         """Per-level views into the flat digest tensor (tests)."""
         half = self.flat.shape[-1] // 2
-        return [self.flat[:, off : off + (half >> k)] for k, off in enumerate(self.offsets)]
+        return [self.flat[..., off : off + (half >> k)] for k, off in enumerate(self.offsets)]
 
     @property
     def root(self) -> bytes:
+        """The root of one tree (stacked trees have no one root: ``roots``)."""
         return self._root
+
+    @property
+    def roots(self) -> np.ndarray:
+        """Every tree's root (B, DIGEST_LEN) uint8, (1, DIGEST_LEN) for one
+        tree: one copy."""
+        return root_rows(self.flat)
 
     def __len__(self) -> int:
         return self.flat.shape[-1] // 2
 
     def digests_at(self, level: np.ndarray, proof: np.ndarray, node: np.ndarray) -> np.ndarray:
-        """The digests (k, 32) at (level, node), one tree for every proof:
-        one ``index_select`` over the flat tensor and one copy."""
-        idx = torch.from_numpy(np.asarray(self.offsets)[level] + node).to(self.flat.device)
-        return _digest_rows(self.flat.index_select(-1, idx))
+        """The digests (k, 32) at (level, proof, node): proof b's own tree
+        of stacked trees, the one tree of every proof otherwise.  One
+        gather over the flat tensor and one copy."""
+        col = np.asarray(self.offsets)[level] + node
+        if self.flat.dim() == 2:
+            return _digest_rows(self.flat.index_select(-1, torch.from_numpy(col).to(self.flat.device)))
+        at = torch.from_numpy(np.stack([proof, col])).to(self.flat.device)
+        return _digest_rows(self.flat[at[0], :, at[1]].T)
 
     def open(self, index: int) -> List[bytes]:
         """Authentication path (sibling digests, leaf level first)."""
@@ -100,8 +116,9 @@ class DeviceMerkleTree:
 
 class DeviceRows:
     """Opening values of a codeword whose canonical limbs (8, n) lie on the
-    card: queried elements are gathered there and decoded on the host; the
-    codeword itself is never copied."""
+    card, or of B proofs' codewords stacked, (B, 8, n): queried elements
+    are gathered there and decoded on the host; the codeword itself is
+    never copied."""
 
     __slots__ = ("canon",)
 
@@ -110,18 +127,26 @@ class DeviceRows:
 
     @property
     def shape(self):
-        return (self.canon.shape[-1], self.canon.shape[-2])
+        return self.canon.shape[:-2] + (self.canon.shape[-1], self.canon.shape[-2])
 
     def __len__(self) -> int:
         return self.canon.shape[-1]
 
     def limbs_at(self, indices) -> np.ndarray:
         """Canonical limb rows (..., NLIMBS) at an index array (...) of any
-        shape: one gather, one copy."""
+        shape, of stacked rows (B, ...), whose proof b reads its own rows
+        at indices[b], as utils/convert.py:gather_limbs reads stacked numpy
+        rows: one gather, one copy."""
         idx = np.asarray(indices, dtype=np.int64)
-        flat = torch.from_numpy(np.ascontiguousarray(idx.reshape(-1))).to(self.canon.device)
-        got = self.canon.index_select(-1, flat).cpu().numpy().T.astype(np.uint32)
-        return got.reshape(idx.shape + (NLIMBS,))
+        if self.canon.dim() == 2:
+            flat = torch.from_numpy(np.ascontiguousarray(idx.reshape(-1))).to(self.canon.device)
+            got = self.canon.index_select(-1, flat).cpu().numpy().T
+        else:
+            proof = np.broadcast_to(np.arange(self.canon.shape[0]).reshape((-1,) + (1,) * (idx.ndim - 1)),
+                                    idx.shape)
+            at = torch.from_numpy(np.stack([proof.reshape(-1), idx.reshape(-1)])).to(self.canon.device)
+            got = self.canon[at[0], :, at[1]].cpu().numpy()
+        return got.astype(np.uint32).reshape(idx.shape + (NLIMBS,))
 
     def gather(self, indices) -> List[int]:
         """Canonical ints at ``indices`` (one gather, one copy)."""
@@ -133,7 +158,8 @@ class DeviceRows:
 
 def use_device_commit(n: Optional[int] = None, device=None) -> bool:
     """Commit on the card when the codeword lies there (``device``, a CUDA
-    device) and has at least DEVICE_COMMIT_MIN elements.
+    device) and has at least DEVICE_COMMIT_MIN elements; with no size
+    ``n``, by the device alone (the batch prover's route).
     STARK_TPU_DEVICE_HASH=0 turns the device commit off, and =1 turns it
     on at any size from STARK_TPU_DEVICE_HASH_MIN (default 0) and on any
     device: on a CPU tensor it runs H4's plain version."""
@@ -165,9 +191,9 @@ def device_commit_paired_many(codewords_mont: torch.Tensor):
     (DeviceRows, DeviceMerkleTree)."""
     canon = F.from_mont(codewords_mont)
     flat = merkle_paired(canon)
-    roots = _digest_bytes(flat[..., -2].T)                   # column -1 is the pad
+    roots = root_rows(flat)
     return [
-        (DeviceRows(canon[r]), DeviceMerkleTree(flat[r], root=roots[r]))
+        (DeviceRows(canon[r]), DeviceMerkleTree(flat[r], root=roots[r].tobytes()))
         for r in range(codewords_mont.shape[0])
     ]
 
@@ -311,10 +337,10 @@ def commit_forest(blocks: Dict[int, torch.Tensor], n: int, num_blocks: int, on_d
             stacked = torch.stack([blocks[k] for k in ks])
             canon = F.from_mont(stacked).reshape((len(ks), R) + stacked.shape[-2:])
             flat = merkle_paired(canon)
-            tops = _digest_bytes(flat[..., -2].reshape(-1, flat.shape[-2]).T)
+            tops = root_rows(flat)
             for a, k in enumerate(ks):
                 for r in range(R):
-                    root = tops[a * R + r]
+                    root = tops[a * R + r].tobytes()
                     rows[k, r] = DeviceRows(canon[a, r])
                     trees[k, r] = DeviceMerkleTree(flat[a, r], root=root)
                     roots[k, r] = root

@@ -10,14 +10,18 @@ phases (pipeline, commit, combination, fri, openings), the part
 ``batch.statements`` before them and the parts ``fri.rounds`` and
 ``fri.queries`` of ``fri``.  The statements share their boundary
 zerofiers; their public keys are one H2 launch and their interpolants
-one evaluation.  The host trees (N1) of a commitment or a FRI round are
-hashed for the whole batch at once (commit/merkle.py:paired_levels), and
-the batch's proofs are opened together, by the routines of the one-proof
-prover at B proofs (protocols/fri.py:Fri.queries,
-protocols/fast_stark.py:FastStark.open_linked): a tree's multiproofs for
-all B by one sibling walk, its values by one gather, each encoded in
-bulk.  FRI
-folds the whole batch on the device at every B, one H7 launch a round
+one evaluation.  The trees of a commitment or a FRI round are hashed for
+the whole batch at once: where the batch lies on a CUDA card
+(commit/device_merkle.py:use_device_commit, by the device alone) by one
+H4 launch over the canonical codewords where they lie, only the roots
+copied out (commit/device_merkle.py: stacked DeviceMerkleTree and
+DeviceRows); elsewhere by N1 over copies on the host
+(commit/merkle.py:paired_levels).  The batch's proofs are opened
+together, by the routines of the one-proof prover at B proofs
+(protocols/fri.py:Fri.queries, protocols/fast_stark.py:
+FastStark.open_linked): a tree's multiproofs for all B by one sibling
+walk, its values by one gather, each encoded in bulk.  FRI folds the
+whole batch on the device at every B, one H7 launch a round
 (field/kernels.py:fri_fold_batched): the JAX package's host branch below
 B*N = 2^14 (HOST_FRI_MAX) is not ported, since the card's fold is faster
 than the host's at B = 1 too (PERF.md, tools/port_fri_branch.py).
@@ -33,19 +37,21 @@ from __future__ import annotations
 import os
 from typing import List, Sequence
 
-import numpy as np
 import torch
 
+from ..commit import kernels as MK
+from ..commit.device_merkle import DeviceMerkleTree, DeviceRows, root_rows, use_device_commit
 from ..commit.merkle import MerkleTree, paired_levels
 from ..config import RPSSS_CONFIG
 from ..field import kernels as K
+from ..field import ops as F
 from ..field.limbs import NLIMBS
 from ..field.scalar import Field, FieldElement
 from ..models import rescue_prime as RP
 from ..protocols.fast_stark import FastStark, TransitionZerofier
 from ..transcript import codec
 from ..transcript.proof_stream import SignatureProofStream
-from ..utils.convert import canonical_np, device_from_ints, ints_from_device, limb_rows_np
+from ..utils.convert import device_from_ints, ints_from_device, limb_rows_np
 from .batch import combination, pipeline
 
 # The span of a batch's statements: the draws' conversion, the public keys
@@ -80,6 +86,9 @@ class BatchProver:
         self.air = air if air is not None else rp.transition_constraints(stark.omicron)
         self._air_constants = RP.rescue_air_tables(stark)
         self._on_device = {stark.device: self}
+        # the route of the batch's trees, all or nothing: H4 where the
+        # codewords lie on a card, else N1 on the host
+        self.device_trees = use_device_commit(device=stark.device)
 
     def _prover_on(self, device) -> "BatchProver":
         """The prover of this one's parameters on ``device``."""
@@ -156,29 +165,27 @@ class BatchProver:
             inv_bz, interp = stark._boundary_tables_batch(boundaries)
 
         # the JAX package's five phases (parallel/batch_prover.py:prove_batch);
-        # each ends in a copy to the host or in host work, so it waits for
-        # the card without a synchronisation of its own
+        # each ends in a copy to the host, in host work or in a
+        # synchronisation, so its seconds hold its device work
         with timer.phase("pipeline"):
             bq_lde, tq_lde, rand_lde = pipeline(
                 stark, self._air_constants, sk_dev, rand_rows, rand_poly, inv_bz, interp,
                 self.tz.inv_codeword,
             )
-            bq_np = canonical_np(bq_lde)                   # (B, R, N, L)
-            rand_np = canonical_np(rand_lde)               # (B, N, L)
+            # the R boundary quotients and the randomizer, (B, R + 1, L, N)
+            committed = F.from_mont(torch.cat([bq_lde, rand_lde[:, None]], dim=1))
+            stark._sync()
 
-        # per-proof commitments + Fiat-Shamir weights; the trees' levels
-        # stay stacked, (B, R, n_l, 32) and (B, n_l, 32), for the openings
+        # per-proof commitments + Fiat-Shamir weights; the trees stay
+        # stacked, proof b's at [b], for the openings
         with timer.phase("commit"):
-            bq_levels = [lv.reshape((B, R) + lv.shape[1:])
-                         for lv in paired_levels(bq_np.reshape((B * R,) + bq_np.shape[2:]))]
-            rand_levels = paired_levels(rand_np)
+            opened, roots = self._commit(committed)                 # roots (B, R + 1, 32)
             weight_vals = []
             n_weights = 1 + 2 * len(self.air) + 2 * R
             for i in range(B):
                 ps = proof_streams[i]
-                for s in range(R):
-                    ps.push(bq_levels[-1][i, s, 0].tobytes())
-                ps.push(rand_levels[-1][i, 0].tobytes())
+                for root in roots[i]:
+                    ps.push(root.tobytes())
                 weight_vals += [w.value for w in stark.sample_weights(n_weights, ps.prover_fiat_shamir())]
             weights = (device_from_ints(weight_vals, dev).reshape(NLIMBS, B, n_weights)
                        .permute(1, 2, 0).unsqueeze(-1).contiguous())   # (B, W, L, 1)
@@ -196,44 +203,64 @@ class BatchProver:
             top = self._fri_batch(combos, proof_streams)
 
         with timer.phase("openings"):
-            opened = [(bq_np[:, s], MerkleTree.of_levels([lv[:, s] for lv in bq_levels])) for s in range(R)]
-            opened += [(rand_np, MerkleTree.of_levels(rand_levels)), (self.tz.rows, self.tz.tree)]
-            stark.open_linked(proof_streams, top, opened)
+            stark.open_linked(proof_streams, top, opened + [(self.tz.rows, self.tz.tree)])
             proofs = [ps.serialize() for ps in proof_streams]
         return proofs
 
     # ------------------------------------------------------------------
+    def _commit(self, canon: torch.Tensor):
+        """One paired-leaf tree per codeword of B proofs' C canonical
+        codewords each, (B, C, L, n): where they lie on the card, one H4
+        launch for all B*C trees and one copy of their roots; elsewhere N1
+        (``paired_levels``) on one copy to the host as element-major rows.
+        Returns, per codeword c, the rows and the tree that hold the B
+        proofs' stacked (proof b opens its own at [b]), and the roots (B, C,
+        DIGEST_LEN) uint8."""
+        B, C = canon.shape[:2]
+        if self.device_trees:
+            flat = MK.merkle_paired(canon)
+            return ([(DeviceRows(canon[:, c]), DeviceMerkleTree(flat[:, c])) for c in range(C)],
+                    root_rows(flat).reshape(B, C, -1))
+        rows = limb_rows_np(canon)                          # (B, C, n, L)
+        levels = [lv.reshape((B, C) + lv.shape[1:])
+                  for lv in paired_levels(rows.reshape((B * C,) + rows.shape[2:]))]
+        return ([(rows[:, c], MerkleTree.of_levels([lv[:, c] for lv in levels])) for c in range(C)],
+                levels[-1][:, :, 0])
+
     def _fri_batch(self, codewords: torch.Tensor, proof_streams: List) -> List[List[int]]:
         """Batched FRI prove over (B, L, N) Montgomery codewords (the JAX
         package's _fri_batch), byte for byte the transcripts of
-        ``Fri.prove_host``.  A round copies the canonical layer (B, n, L)
-        to the host once, builds one paired-leaf tree per proof (N1),
-        draws the B challenges and folds the batch in one H7 launch, whose
-        canonical output is the next round's layer.  Then each proof's
-        last layer in the clear, and the query rounds of the whole batch
-        (``Fri.queries``).  Returns each proof's top-level indices."""
+        ``Fri.prove_host``.  A round commits the canonical layer, one
+        paired-leaf tree per proof (``_commit``: H4 where it lies on the
+        card, N1 on a host copy), draws the B challenges and folds the
+        batch in one H7 launch, whose canonical output is the next round's
+        layer.  Then each proof's last layer in the clear (on the card's
+        route the one layer copied out), and the query rounds of the whole
+        batch (``Fri.queries``).  Returns each proof's top-level indices."""
         fri = self.stark.fri
         timer = self.stark.timer
         dev = codewords.device
         u = fri._initial_u(dev)
         codeword = codewords.contiguous()
-        trees = []                                     # per round, the B trees' stacked levels
+        layers, trees = [], []                         # per round, the B proofs' stacked
         num = fri.num_rounds()
         with timer.phase("fri.rounds"):
-            layers = [canonical_np(codeword)]              # per round (B, n, L)
+            canon = F.from_mont(codeword)                  # (B, L, N)
             for r in range(num):
-                trees.append(MerkleTree.of_levels(paired_levels(layers[-1])))
+                [(rows, tree)], roots = self._commit(canon[:, None])
+                layers.append(rows)
+                trees.append(tree)
                 for i, ps in enumerate(proof_streams):
-                    ps.push(trees[-1].levels[-1][i, 0].tobytes())
+                    ps.push(roots[i, 0].tobytes())
                 if r == num - 1:
                     break
                 alphas = [self.field.sample(ps.prover_fiat_shamir()).value for ps in proof_streams]
                 alpha_dev = device_from_ints(alphas, dev).t().contiguous().unsqueeze(-1)  # (B, L, 1)
                 codeword, canon, u = K.fri_fold_batched(codeword, u, alpha_dev)
-                layers.append(limb_rows_np(canon))
+            last_rows = limb_rows_np(canon)                    # (B, n, L)
 
         with timer.phase("fri.queries"):
-            last = codec.encode_felt_lists(layers[-1])
+            last = codec.encode_felt_lists(last_rows)
             for i, ps in enumerate(proof_streams):
                 ps.push_encoded(last[i].tobytes(), (last.shape[1],))
             top = fri.draw_indices(proof_streams)

@@ -237,10 +237,10 @@ class Fri:
         (layer[i], layer[i + half]) at each of a proof's reduced indices i
         (``top`` (B, T) reduced mod half) and ONE multiproof for its set.
         ``layers[r]`` is what utils/convert.py:gather_limbs reads (stacked
-        (B, n, NLIMBS) rows give proof b its own) and ``trees[r]`` any tree
-        a MultiproofWalk opens (B trees' stacked levels give proof b its
-        own): a layer's values are one gather, its multiproofs one walk,
-        both encoded in bulk."""
+        (B, n, NLIMBS) rows or (B, 8, n) DeviceRows give proof b its own)
+        and ``trees[r]`` any tree a MultiproofWalk opens (B trees' stacked
+        levels or DeviceMerkleTree give proof b its own): a layer's values
+        are one gather, its multiproofs one walk, both encoded in bulk."""
         indices = np.asarray(top, dtype=np.int64)
         runs = []
         for r in range(len(layers) - 1):

@@ -9,7 +9,9 @@ randomness from ``os.urandom``, which the fixture replaces with a
 counter-mode stream (monkeypatch); the port takes the same stream as
 ``urandom=``.  The proofs are byte-identical, each package verifies the
 other's, a proof is rejected under another document, and the batched FRI
-writes the transcripts of ``Fri.prove_host`` on the same codewords.
+writes the transcripts of ``Fri.prove_host`` on the same codewords.  The
+batch's trees take one route, H4 (STARK_TPU_DEVICE_HASH=1) or N1, with
+the same bytes.
 """
 
 import hashlib
@@ -24,8 +26,10 @@ from stark_anatomy_tpu.models.rescue_prime import RescuePrime as JaxRescuePrime
 from stark_anatomy_tpu.parallel.batch_prover import BatchProver as JaxBatchProver
 from stark_anatomy_tpu.protocols.fast_stark import FastStark as JaxFastStark
 from stark_anatomy_tpu.transcript.proof_stream import SignatureProofStream as JaxSPS
+from stark_anatomy_tpu_torch.commit import kernels as MK
+from stark_anatomy_tpu_torch.commit import native as NB
 from stark_anatomy_tpu_torch.commit.device_merkle import DeviceMerkleTree
-from stark_anatomy_tpu_torch.commit.merkle import MultiproofWalk
+from stark_anatomy_tpu_torch.commit.merkle import MerkleTree, MultiproofWalk
 from stark_anatomy_tpu_torch.field.limbs import NLIMBS
 from stark_anatomy_tpu_torch.field.scalar import P
 from stark_anatomy_tpu_torch.models import rescue_prime as RP
@@ -223,3 +227,47 @@ def test_a_zerofier_tree_on_the_device_is_opened_by_the_same_walk(port_proofs, m
     opened = served[stark.fri.num_rounds() - 1:]           # after FRI's query layers
     assert opened[-1] == (DeviceMerkleTree, B) and len(opened) == stark.num_registers + 2
     assert walks[-1] == B and len(walks) == stark.fri.num_rounds()
+
+
+def trees_hashed(monkeypatch) -> dict:
+    """Calls of N1's leaf and level hashers and of H4's wrapper, counted
+    as they are made."""
+    calls = {"leaves_from_limb_pairs": 0, "merkle_level": 0, "merkle_paired": 0}
+    for module, name in ((NB, "leaves_from_limb_pairs"), (NB, "merkle_level"), (MK, "merkle_paired")):
+        def counted(*args, _f=getattr(module, name), _name=name, **kwargs):
+            calls[_name] += 1
+            return _f(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("mode", ["0", "1"])
+def test_the_batch_s_trees_take_one_route(mode, jax_batch, port_prover, port_proofs, monkeypatch):
+    """STARK_TPU_DEVICE_HASH=1 puts the batch's trees on the card's route
+    (H4's plain version here): one H4 call for the R codewords and the
+    randomizer's stacked, and one a FRI round, no N1 call; the openings
+    serve stacked DeviceMerkleTrees.  =0 keeps the host route: N1's calls
+    for the commitment and every FRI round, no H4 call.
+    Both give the host route's proofs and the JAX package's, byte for
+    byte."""
+    stark = port_prover.stark
+    monkeypatch.setenv("STARK_TPU_DEVICE_HASH", mode)
+    prover = BatchProver(stark, port_prover.rp, port_prover.tz, air=port_prover.air)
+    assert prover.device_trees == (mode == "1")
+    calls = trees_hashed(monkeypatch)
+    walks, served = walks_served(monkeypatch)
+    proofs = prover.prove_batch(inputs(), [SignatureProofStream(d) for d in DOCS],
+                                urandom=det_urandom(SEED))
+    assert proofs == port_proofs
+    assert proofs == jax_batch[3]
+    rounds = stark.fri.num_rounds()
+    depths = [(stark.fri_domain_length >> r).bit_length() - 2 for r in range(rounds)]
+    if mode == "1":
+        assert calls == {"leaves_from_limb_pairs": 0, "merkle_level": 0, "merkle_paired": 1 + rounds}
+    else:
+        assert calls == {"leaves_from_limb_pairs": 1 + rounds,
+                         "merkle_level": depths[0] + sum(depths), "merkle_paired": 0}
+    kind = DeviceMerkleTree if mode == "1" else MerkleTree
+    assert [t for t, _ in served[:-1]] == [kind] * (rounds - 1 + stark.num_registers + 1)
+    assert served[-1] == (type(port_prover.tz.tree), B)

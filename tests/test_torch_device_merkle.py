@@ -5,7 +5,8 @@ commit/device_merkle.py builds the whole paired-leaf tree where the
 codeword lies, in the reference's flat layout.  On the CPU its kernel
 wrapper runs the plain PyTorch version of H4, which must give the JAX
 package's flat array (``_commit_paired_core``) word for word, the host
-tree's (N1) levels, roots, paths and multiproofs byte for byte, and, with
+tree's (N1) levels, roots, paths and multiproofs byte for byte (B trees
+stacked, (B, 8, n), as the host's stacked levels), and, with
 STARK_TPU_DEVICE_HASH=1, the same proof bytes as the host commitment.
 The CUDA kernel itself is held against this plain version by
 chip_smoke.py on the card.
@@ -23,6 +24,7 @@ from stark_anatomy_tpu.utils.convert import device_from_ints as jax_from_ints
 from stark_anatomy_tpu_torch.commit import kernels as MK
 from stark_anatomy_tpu_torch.commit.device_merkle import (
     DEVICE_COMMIT_MIN,
+    DeviceMerkleTree,
     DeviceRows,
     device_commit_paired,
     device_commit_paired_many,
@@ -30,9 +32,9 @@ from stark_anatomy_tpu_torch.commit.device_merkle import (
     use_device_commit,
 )
 from stark_anatomy_tpu_torch.commit.hashing import hash_paired_leaf
-from stark_anatomy_tpu_torch.commit.merkle import MerkleTree, open_multi
+from stark_anatomy_tpu_torch.commit.merkle import MerkleTree, MultiproofWalk, open_multi, paired_levels
 from stark_anatomy_tpu_torch.field.scalar import P
-from stark_anatomy_tpu_torch.utils.convert import canonical_np, device_from_ints
+from stark_anatomy_tpu_torch.utils.convert import canonical_np, device_from_ints, gather_limbs, rows_from_ints
 
 torch.set_num_threads(1)
 
@@ -198,3 +200,32 @@ def test_full_prover_device_commit_byte_identical(monkeypatch):
         proofs[mode] = (proof, tz.root)
     assert proofs["0"][1] == proofs["1"][1], "preprocess roots differ"
     assert proofs["0"][0] == proofs["1"][0], "proof bytes differ across commit paths"
+
+
+@pytest.mark.parametrize("B,n", [(1, 2), (3, 2), (1, 64), (4, 8), (2, 512), (3, 4096)])
+def test_stacked_trees_and_rows_match_the_host_s(B, n):
+    """B proofs' trees stacked, (B, 8, n): a DeviceMerkleTree serves proof
+    b's own digests (``digests_at``), its roots are N1's tree by tree, and
+    DeviceRows gives proof b its own rows at indices[b], as the host's
+    stacked levels (``paired_levels``) and numpy rows (``gather_limbs``)."""
+    rows = np.stack([rows_from_ints([RNG.randrange(P) for _ in range(n)]) for _ in range(B)])
+    canon = torch.from_numpy(np.ascontiguousarray(rows.transpose(0, 2, 1)).astype(np.int32))
+    tree, dev_rows = DeviceMerkleTree(MK.merkle_paired(canon)), DeviceRows(canon)
+    levels = paired_levels(rows)
+    assert len(tree) == n // 2 and tree.depth == len(levels) - 1
+    assert np.array_equal(tree.roots, levels[-1][:, 0])
+    assert [r.tobytes() for r in tree.roots] == [MerkleTree.from_limbs_paired(r).root for r in rows]
+    k = 40
+    level = np.sort(np.array([RNG.randrange(len(levels)) for _ in range(k)]))
+    proof = np.array([RNG.randrange(B) for _ in range(k)])
+    node = np.array([RNG.randrange(levels[lv].shape[1]) for lv in level])
+    want = np.stack([levels[lv][p, v] for lv, p, v in zip(level, proof, node)])
+    assert np.array_equal(tree.digests_at(level, proof, node), want)
+    sets = [sorted(RNG.sample(range(n // 2), min(3, n // 2))) for _ in range(B)]
+    walk = MultiproofWalk(sets, n // 2)
+    assert np.array_equal(walk.digests(tree), walk.digests(MerkleTree.of_levels(levels)))
+    for shape in ((B, 7), (B, 5, 2)):
+        idx = np.array([RNG.randrange(n) for _ in range(int(np.prod(shape)))]).reshape(shape)
+        got = gather_limbs(dev_rows, idx)
+        assert got.shape == shape + (8,) and got.dtype == np.uint32
+        assert np.array_equal(got, gather_limbs(rows, idx))
