@@ -44,7 +44,7 @@ Phases (each prints its wall seconds):
    path must be launched in that sign (H7, the batched FRI fold, too: a
    sign is a batch of one), H12 in the verify; then one warm-up and three
    timed signs and verifies, and the kernel launches of one warm sign (at
-   most 15) and of one verify (at most 3); the
+   most 23) and of one verify (at most 3); the
    Rescue trace alone, which must be one ``rescue_perm`` launch and no
    H0/H1 launch; the prover's phase seconds (PhaseTimer) of the timed
    signs; a device profile of one sign (torch.profiler) and a host one
@@ -274,7 +274,15 @@ SHARDED_ONLY = ("ntt_columns",)              # its record is made, and its launc
 # the AIR kernels (csrc/air.cu): H10 and H11 launch once in a sign, H12 once
 # in a verify, and nothing else of a verify but the result's conversion
 VERIFY_KERNELS = ("verify_core",)
-SIGN_MAX_LAUNCHES = 15
+# a warm sign (the batch prover at B = 1, its trees on H4), by caller
+# (tools/port_compare.py:launches_by_caller): batch_prover.py:_commit H4 5
+# (the committed stack and each FRI layer), :_fri_batch H7 3 and H0 1,
+# :_prove H0 1; ops/ntt.py:ntt H3 3, :evaluate_domain_horner H0 1 and H1
+# 1; rescue_prime.py:_permute H2 2 (the hash and the trace);
+# fast_stark.py:_pointwise H0 2, :_trace_lde H0 1; convert.py:
+# ints_from_device H0 1; batch.py:pipeline H10 1, :combination H11 1.  The
+# benchmark's sv.sign_launches reads the same sign's kernels on the card.
+SIGN_MAX_LAUNCHES = 23
 VERIFY_MAX_LAUNCHES = 3
 # H10 a point: 20 products (two of them squarings) and 12 adds or
 # subtracts; H11 a point and pair: 2 products and 2 adds, and the first

@@ -64,7 +64,7 @@ from ..transcript.proof_stream import ProofStream, push_runs
 from ..utils.convert import canonical_np, device_from_ints, gather_limbs, ints_from_device
 from ..utils.profiling import PhaseTimer, device_sync
 from ..utils.rand import bulk_random_mont
-from .stark import Boundary, StarkParams
+from .stark import Boundary, StarkParams, opened_section
 
 
 class TransitionZerofier:
@@ -554,151 +554,158 @@ class FastStark(StarkParams):
         in place of the symbolic ``MPolynomial.evaluate`` — models whose
         constraints factor (e.g. Rescue's lhs - rhs**3,
         models/rescue_prime.py:make_point_air) evaluate orders of magnitude
-        faster than their expanded monomial form."""
-        original_trace_length = 1 + max(c for c, r, v in boundary)
-        randomized_trace_length = original_trace_length + self.num_randomizers
+        faster than their expanded monomial form.  The seconds go to
+        ``self.timer`` as it is at the call: the phase ``verify`` and its
+        parts ``verify.decode`` (the transcript's objects), ``verify.fri``,
+        ``verify.openings`` (the R + 2 opened sections, their leaves and
+        multiproofs) and ``verify.core`` (the combination at every query
+        point); each closes on a rejection too."""
+        timer = self.timer
+        with timer.phase("verify"):
+            original_trace_length = 1 + max(c for c, r, v in boundary)
+            randomized_trace_length = original_trace_length + self.num_randomizers
 
-        if proof_stream_factory is None:
-            proof_stream = ProofStream.deserialize(proof)
-        else:
-            proof_stream = proof_stream_factory(proof)
+            with timer.phase("verify.decode"):
+                if proof_stream_factory is None:
+                    proof_stream = ProofStream.deserialize(proof)
+                else:
+                    proof_stream = proof_stream_factory(proof)
 
-        R = self.num_registers
-        boundary_quotient_roots = [proof_stream.pull_typed(bytes) for _ in range(R)]
-        randomizer_root = proof_stream.pull_typed(bytes)
+            R = self.num_registers
+            boundary_quotient_roots = [proof_stream.pull_typed(bytes) for _ in range(R)]
+            randomizer_root = proof_stream.pull_typed(bytes)
 
-        weights = self.sample_weights(
-            1 + 2 * len(transition_constraints) + 2 * R,
-            proof_stream.verifier_fiat_shamir(),
-        )
-
-        polynomial_values: List[Tuple[int, int]] = []
-        if not self.fri.verify(proof_stream, polynomial_values):
-            raise VerificationError(f"FRI rejected: {self.fri.last_rejection}")
-        polynomial_values.sort(key=lambda iv: iv[0])
-        indices = [i for i, v in polynomial_values]
-        values = [v for i, v in polynomial_values]
-
-        N = self.fri.domain_length
-        # `indices` already contains each test's a AND b positions (from
-        # FRI's polynomial_values), so adding the +expansion shifts yields
-        # exactly the prover's sorted `quadrupled` multiset
-        duplicated = sorted(
-            indices + [(i + self.expansion_factor) % N for i in indices]
-        )
-        # paired leaves: leaf l covers positions l and l + N/2
-        leaf_indices = sorted({i % (N // 2) for i in duplicated})
-
-        depth = N.bit_length() - 2                    # paired tree: N/2 leaves
-
-        from ..commit.hashing import hash_paired_leaf
-
-        def pull_section(root, what: str) -> Dict[int, int]:
-            values = proof_stream.pull_typed(list)
-            proof = proof_stream.pull_typed(list)
-            if len(values) != len(duplicated) or not all(
-                isinstance(v, int) for v in values
-            ):
-                raise MalformedProof(f"{what}: bad opened-values section")
-            section = dict(zip(duplicated, values))
-            ld = {
-                l: hash_paired_leaf(section[l], section[l + N // 2])
-                for l in leaf_indices
-            }
-            if not verify_multi(root, depth, ld, proof):
-                raise VerificationError(f"{what}: Merkle multiproof failed")
-            return section
-
-        leafs: List[Dict[int, int]] = []
-        for r in range(R):
-            leafs.append(
-                pull_section(boundary_quotient_roots[r], f"boundary quotient {r}")
+            weights = self.sample_weights(
+                1 + 2 * len(transition_constraints) + 2 * R,
+                proof_stream.verifier_fiat_shamir(),
             )
 
-        randomizer = pull_section(randomizer_root, "randomizer")
-        zerofier_leafs = pull_section(transition_zerofier_root, "transition zerofier")
+            polynomial_values: List[Tuple[int, int]] = []
+            with timer.phase("verify.fri"):
+                fri_accepts = self.fri.verify(proof_stream, polynomial_values)
+            if not fri_accepts:
+                raise VerificationError(f"FRI rejected: {self.fri.last_rejection}")
+            polynomial_values.sort(key=lambda iv: iv[0])
+            indices = [i for i, v in polynomial_values]
+            values = [v for i, v in polynomial_values]
 
-        zerofiers = self.boundary_zerofiers(boundary)
-        interpolants = self.boundary_interpolants(boundary)
-        tq_bounds = self.transition_quotient_degree_bounds(transition_constraints)
-        bq_bounds = self.boundary_quotient_degree_bounds(
-            randomized_trace_length, boundary
-        )
-        max_degree = self.max_degree(transition_constraints)
-
-        if air_index_evaluator is not None:
-            bad = self._verify_combinations_batched(
-                indices, values, leafs, randomizer, zerofier_leafs, weights,
-                zerofiers, interpolants, tq_bounds, bq_bounds, max_degree,
-                air_index_evaluator,
-            )
-            if bad is not None:
-                raise VerificationError(
-                    f"combination mismatch at query index {bad}"
+            with timer.phase("verify.openings"):
+                N = self.fri.domain_length
+                # `indices` already contains each test's a AND b positions (from
+                # FRI's polynomial_values), so adding the +expansion shifts yields
+                # exactly the prover's sorted `quadrupled` multiset
+                duplicated = sorted(
+                    indices + [(i + self.expansion_factor) % N for i in indices]
                 )
-            if proof_stream.read_index != len(proof_stream.objects):
-                raise MalformedProof("trailing transcript objects")
-            return True
+                # paired leaves: leaf l covers positions l and l + N/2
+                leaf_indices = sorted({i % (N // 2) for i in duplicated})
 
-        for i in range(len(indices)):
-            current_index = indices[i]
-            domain_current = self.generator * (self.omega ** current_index)
-            next_index = (current_index + self.expansion_factor) % N
-            domain_next = self.generator * (self.omega ** next_index)
+                depth = N.bit_length() - 2                    # paired tree: N/2 leaves
 
-            current_trace = []
-            next_trace = []
-            for s in range(R):
-                bq_cur = FieldElement(leafs[s][current_index], self.field)
-                bq_next = FieldElement(leafs[s][next_index], self.field)
-                current_trace.append(
-                    bq_cur * zerofiers[s].evaluate(domain_current)
-                    + interpolants[s].evaluate(domain_current)
+                from ..commit.hashing import hash_paired_leaf
+
+                def pull_section(root, what: str) -> Dict[int, int]:
+                    section = opened_section(duplicated, proof_stream.pull_typed(list), what)
+                    proof = proof_stream.pull_typed(list)
+                    ld = {
+                        l: hash_paired_leaf(section[l], section[l + N // 2])
+                        for l in leaf_indices
+                    }
+                    if not verify_multi(root, depth, ld, proof):
+                        raise VerificationError(f"{what}: Merkle multiproof failed")
+                    return section
+
+                leafs: List[Dict[int, int]] = []
+                for r in range(R):
+                    leafs.append(
+                        pull_section(boundary_quotient_roots[r], f"boundary quotient {r}")
+                    )
+
+                randomizer = pull_section(randomizer_root, "randomizer")
+                zerofier_leafs = pull_section(transition_zerofier_root, "transition zerofier")
+
+            with timer.phase("verify.core"):
+                zerofiers = self.boundary_zerofiers(boundary)
+                interpolants = self.boundary_interpolants(boundary)
+                tq_bounds = self.transition_quotient_degree_bounds(transition_constraints)
+                bq_bounds = self.boundary_quotient_degree_bounds(
+                    randomized_trace_length, boundary
                 )
-                next_trace.append(
-                    bq_next * zerofiers[s].evaluate(domain_next)
-                    + interpolants[s].evaluate(domain_next)
-                )
+                max_degree = self.max_degree(transition_constraints)
 
-            if air_point_evaluator is not None:
-                transition_values = air_point_evaluator(
-                    domain_current, current_trace, next_trace
-                )
-            else:
-                point = [domain_current] + current_trace + next_trace
-                transition_values = [
-                    tc.evaluate(point) for tc in transition_constraints
-                ]
+                if air_index_evaluator is not None:
+                    bad = self._verify_combinations_batched(
+                        indices, values, leafs, randomizer, zerofier_leafs, weights,
+                        zerofiers, interpolants, tq_bounds, bq_bounds, max_degree,
+                        air_index_evaluator,
+                    )
+                    if bad is not None:
+                        raise VerificationError(
+                            f"combination mismatch at query index {bad}"
+                        )
+                    if proof_stream.read_index != len(proof_stream.objects):
+                        raise MalformedProof("trailing transcript objects")
+                    return True
 
-            terms: List[FieldElement] = [
-                FieldElement(randomizer[current_index], self.field)
-            ]
-            tz_value = FieldElement(zerofier_leafs[current_index], self.field)
-            for s in range(len(transition_values)):
-                quotient = transition_values[s] / tz_value
-                terms.append(quotient)
-                terms.append(quotient * (domain_current ** (max_degree - tq_bounds[s])))
-            for s in range(R):
-                bqv = FieldElement(leafs[s][current_index], self.field)
-                terms.append(bqv)
-                terms.append(bqv * (domain_current ** (max_degree - bq_bounds[s])))
+                for i in range(len(indices)):
+                    current_index = indices[i]
+                    domain_current = self.generator * (self.omega ** current_index)
+                    next_index = (current_index + self.expansion_factor) % N
+                    domain_next = self.generator * (self.omega ** next_index)
 
-            combination = reduce(
-                lambda a, b: a + b,
-                [terms[j] * weights[j] for j in range(len(terms))],
-                self.field.zero(),
-            )
-            if combination.value != values[i]:
-                raise VerificationError(
-                    f"combination mismatch at query index {current_index}"
-                )
+                    current_trace = []
+                    next_trace = []
+                    for s in range(R):
+                        bq_cur = FieldElement(leafs[s][current_index], self.field)
+                        bq_next = FieldElement(leafs[s][next_index], self.field)
+                        current_trace.append(
+                            bq_cur * zerofiers[s].evaluate(domain_current)
+                            + interpolants[s].evaluate(domain_current)
+                        )
+                        next_trace.append(
+                            bq_next * zerofiers[s].evaluate(domain_next)
+                            + interpolants[s].evaluate(domain_next)
+                        )
 
-        # anti-malleability: every transcript object must have been consumed
-        # (trailing junk would give distinct valid encodings of one proof)
-        if proof_stream.read_index != len(proof_stream.objects):
-            raise MalformedProof("trailing transcript objects")
+                    if air_point_evaluator is not None:
+                        transition_values = air_point_evaluator(
+                            domain_current, current_trace, next_trace
+                        )
+                    else:
+                        point = [domain_current] + current_trace + next_trace
+                        transition_values = [
+                            tc.evaluate(point) for tc in transition_constraints
+                        ]
 
-        return True
+                    terms: List[FieldElement] = [
+                        FieldElement(randomizer[current_index], self.field)
+                    ]
+                    tz_value = FieldElement(zerofier_leafs[current_index], self.field)
+                    for s in range(len(transition_values)):
+                        quotient = transition_values[s] / tz_value
+                        terms.append(quotient)
+                        terms.append(quotient * (domain_current ** (max_degree - tq_bounds[s])))
+                    for s in range(R):
+                        bqv = FieldElement(leafs[s][current_index], self.field)
+                        terms.append(bqv)
+                        terms.append(bqv * (domain_current ** (max_degree - bq_bounds[s])))
+
+                    combination = reduce(
+                        lambda a, b: a + b,
+                        [terms[j] * weights[j] for j in range(len(terms))],
+                        self.field.zero(),
+                    )
+                    if combination.value != values[i]:
+                        raise VerificationError(
+                            f"combination mismatch at query index {current_index}"
+                        )
+
+                # anti-malleability: every transcript object must have been consumed
+                # (trailing junk would give distinct valid encodings of one proof)
+                if proof_stream.read_index != len(proof_stream.objects):
+                    raise MalformedProof("trailing transcript objects")
+
+                return True
 
     # ------------------------------------------------------------------
     # batched verifier core: all K query checks through the device

@@ -21,7 +21,7 @@ from __future__ import annotations
 import os
 from functools import reduce
 from hashlib import blake2b
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..commit.hashing import hash_paired_leaf
 from ..commit.merkle import open_multi, paired_tree_from_ints, verify_multi
@@ -36,6 +36,21 @@ from ..utils.convert import device_from_ints
 from .fri import Fri
 
 Boundary = List[Tuple[int, int, FieldElement]]  # (cycle, register, value)
+
+
+def opened_section(duplicated: Sequence[int], values, what: str) -> Dict[int, int]:
+    """One opened section's values by position: ``duplicated`` lists the
+    positions in the order the prover opened them, a position queried
+    twice twice over.  A leaf hashes one copy of each value, so the copies
+    must be equal, or a byte of the other could change and the proof still
+    verify; raises MalformedProof otherwise."""
+    if len(values) != len(duplicated) or not all(isinstance(v, int) for v in values):
+        raise MalformedProof(f"{what}: bad opened-values section")
+    section: Dict[int, int] = {}
+    for i, v in zip(duplicated, values):
+        if section.setdefault(i, v) != v:
+            raise MalformedProof(f"{what}: two openings of position {i} differ")
+    return section
 
 
 class StarkParams:
@@ -358,13 +373,8 @@ class Stark(StarkParams):
         depth = N.bit_length() - 2                    # paired tree: N/2 leaves
 
         def pull_section(root, what: str):
-            values = proof_stream.pull_typed(list)
+            section = opened_section(duplicated_indices, proof_stream.pull_typed(list), what)
             proof = proof_stream.pull_typed(list)
-            if len(values) != len(duplicated_indices) or not all(
-                isinstance(v, int) for v in values
-            ):
-                raise MalformedProof(f"{what}: bad opened-values section")
-            section = dict(zip(duplicated_indices, values))
             ld = {
                 l: hash_paired_leaf(section[l], section[l + N // 2])
                 for l in leaf_indices

@@ -7,7 +7,10 @@ prove_batch), so the two packages' reports compare phase by phase.  A name
 ``"<phase>.<part>"`` is a part of ``<phase>``, opened inside it through the
 same ``phase`` call: the parts of ``fri`` (protocols/fri.py:Fri.prove) and
 of ``trace_gen`` (models/mimc.py:prove_chain) say where a phase's host
-time goes, and are kept apart from the phases' own table.  It adds no
+time goes, and are kept apart from the phases' own table.  The verifier
+has one phase, ``verify`` (protocols/fast_stark.py:FastStark.verify), with
+the parts ``decode``, ``fri``, ``openings`` and ``core``; the JAX package
+times no verify.  It adds no
 device synchronisation of its own: a phase of ``prove_batch`` ends in a
 copy to the host or in host work, which waits for the card, and a phase of
 ``FastStark.prove`` that ends in launches calls ``device_sync``, as the

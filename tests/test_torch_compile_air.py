@@ -120,7 +120,8 @@ def test_each_package_verifies_the_others_compiled_air_proof(setup, proofs, monk
 
 def test_prove_records_the_jax_phase_names(setup, proofs):
     js, ts, _, _, _, _, _ = setup
-    assert set(ts.timer.totals) == PROVE_PHASES
+    # the port's timer also holds ``verify`` once the port has verified
+    assert set(ts.timer.totals) - {"verify"} == PROVE_PHASES
     assert set(js.timer.totals) == PROVE_PHASES
     assert all(ts.timer.counts[name] >= 1 for name in PROVE_PHASES)
     assert "openings" in ts.timer.report()
