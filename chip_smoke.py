@@ -195,6 +195,7 @@ KERNEL_INFO = {
     "rescue_quotients": ("stark_anatomy_tpu/protocols/fast_stark.py:1033", None),
     "combination": ("stark_anatomy_tpu/protocols/fast_stark.py:1087", None),
     "verify_core": ("stark_anatomy_tpu/protocols/fast_stark.py:958", None),
+    "sample_mont": ("stark_anatomy_tpu/parallel/batch_prover.py:138", None),
 }
 # the profiler's kernel names
 PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
@@ -204,7 +205,7 @@ PROFILE_TAGS = {"mont_mul": "MontMul", "mont_pow": "pow_kernel",
                 "fri_fold": "fri_fold_kernel", "fri_fold_batched": "fri_fold_batched_kernel",
                 "ntt_tiled": "tiled_", "ntt_columns": "columns_kernel",
                 "rescue_quotients": "quotients_kernel", "combination": "combination_kernel",
-                "verify_core": "verify_kernel"}
+                "verify_core": "verify_kernel", "sample_mont": "sample_mont_kernel"}
 TILED_STEPS = ("tiled_columns_kernel", "tiled_rows_kernel")   # H8's two launches
 RESCUE_BATCHES = (1, 7, 4096)
 NTT_SIZES = tuple(1 << k for k in range(14))   # every n H3 takes: its cluster path from 1024 up
@@ -251,11 +252,14 @@ FOLD_BATCHED_SHAPES = ((BATCH, 8, 4096), (BATCH, 8, 512))   # a batch's first FR
 # proof, and its four FRI layers, 4096 rows down to 512
 BATCH_TREES = ((BATCH, 3, 8, 4096),) + tuple((BATCH, 1, 8, 4096 >> r) for r in range(4))
 BATCH_KERNELS = ("fri_fold_batched",)        # its record is made, and its launches read, on the batch's path
+# H13's draws: a sign's (B = 1: R * nrand + max_degree + 1 = 1536), a
+# batch of 64's (98,304, its record) and one
+SAMPLE_SIZES = (1, 1536, 64 * 1536)
 L2_BYTES = 50 << 20                          # H100 L2: timed inputs rotate over more than twice this
 SMALL_BATCH = 3                              # the tests' seeded batch (tests/test_torch_batch_prover.py)
 INTERP_SIZES = (16, 256)
 FOLD_BATCHED_BYTES = 128    # per folded element: c_i, c_{i+h} read; folded, canon written
-BATCH_SPANS = ("hash", "sample", "device_from_ints", "_boundary_tables", "pipeline",
+BATCH_SPANS = ("hash", "sample", "sample_mont", "device_from_ints", "_boundary_tables", "pipeline",
                "merkle_paired", "root_rows", "combination", "_fri_batch", "fri_fold_batched",
                "limb_rows_np", "queries", "open_linked", "digests", "gather_limbs", "serialize")
 LARGE_PHASES = ("trace_gen", "trace_lde", "boundary_quotients", "commit_bq", "air_quotients",
@@ -280,9 +284,10 @@ VERIFY_KERNELS = ("verify_core",)
 # :_prove H0 1; ops/ntt.py:ntt H3 3, :evaluate_domain_horner H0 1 and H1
 # 1; rescue_prime.py:_permute H2 2 (the hash and the trace);
 # fast_stark.py:_pointwise H0 2, :_trace_lde H0 1; convert.py:
-# ints_from_device H0 1; batch.py:pipeline H10 1, :combination H11 1.  The
-# benchmark's sv.sign_launches reads the same sign's kernels on the card.
-SIGN_MAX_LAUNCHES = 23
+# ints_from_device H0 1; batch.py:pipeline H10 1, :combination H11 1;
+# kernels.py:sample_mont H13 1 (the draws).  The benchmark's
+# sv.sign_launches reads the same sign's kernels on the card.
+SIGN_MAX_LAUNCHES = 24
 VERIFY_MAX_LAUNCHES = 3
 # H10 a point: 20 products (two of them squarings) and 12 adds or
 # subtracts; H11 a point and pair: 2 products and 2 adds, and the first
@@ -629,6 +634,25 @@ def field_inputs(shape, seed: int, special=None):
         # (count, 8) element-major -> (*lead, 8, n)
         out.append(rows.reshape(lead + (n, 8)).transpose(-1, -2).contiguous())
     return out
+
+
+def sample_inputs(n: int, seed: int):
+    """n seeded draws as H13 takes them, a CPU (n, 17) uint8 tensor, the
+    first the reduction's edges: 0, 2^136 - 1, p - 1, p, p + 1, 2p - 1,
+    2^128 - 1, 2^128 and k p - 1, k p, k p + 1 for the largest k with
+    k p < 2^136."""
+    import torch
+
+    from stark_anatomy_tpu_torch.field.kernels import SAMPLE_BYTES
+    from stark_anatomy_tpu_torch.field.scalar import P
+
+    top = 1 << (8 * SAMPLE_BYTES)
+    k = (top - 1) // P
+    edges = [0, top - 1, P - 1, P, P + 1, 2 * P - 1, (1 << 128) - 1, 1 << 128, k * P - 1, k * P, k * P + 1]
+    rng = random.Random(seed)
+    data = b"".join(v.to_bytes(SAMPLE_BYTES, "big") for v in edges[:n])
+    data += rng.randbytes(SAMPLE_BYTES * max(0, n - len(edges)))
+    return torch.frombuffer(bytearray(data), dtype=torch.uint8).view(n, SAMPLE_BYTES)
 
 
 def kernel_record(name: str, max_abs_err: int, ms: float, plain_ms: float, bound) -> dict:
@@ -2001,6 +2025,12 @@ def main() -> int:
         if level.shape[0] > 1:
             level = NB.merkle_level_plain(level)
     print(f"  N1 tree n={TREE_MAIN[-1]}: every level equals hashlib's")
+    # H13 against its plain version at a sign's draws, a batch of 64's and
+    # one, the first draws the reduction's edges (0, 2^136 - 1, p and its
+    # neighbours, 2^128, the largest multiple of p below 2^136)
+    for n in SAMPLE_SIZES:
+        raw_cpu = sample_inputs(n, 1400 + n)
+        compare("sample_mont", f"n={n}", K.sample_mont(raw_cpu.to(dev)), K.sample_mont_plain(raw_cpu))
     print(f"max mismatch count: {worst_mismatch}")
     assert worst_mismatch == 0, "a kernel disagrees with its plain version"
 
@@ -2130,6 +2160,19 @@ def main() -> int:
               f"({bound[1]}; {BLAKE2S_INSTR} instructions per node at {INSTR_PER_S:.4g}/s)")
         if batch == 1:
             records["merkle"] = record("merkle", ms, plain_ms, bound)
+    # H13 at a batch of 64's draws (its record) and a sign's.  Bytes: 17
+    # read and an element written a draw; operations: one product and the
+    # reduction's adds
+    for n in SAMPLE_SIZES[::-1][:2]:
+        raw = sample_inputs(n, 1500 + n).to(dev)
+        bound = bound_ms(n, n * (K.SAMPLE_BYTES + 16), MUL_OPS + 2 * ADD_OPS)
+        ms = time_launches(lambda: K.sample_mont(raw), 200)
+        got = profile_kernel("sample_mont", lambda: K.sample_mont(raw), 50)
+        plain_ms = time_launches(lambda: K.sample_mont_plain(raw), 3, warm=1)
+        print(f"  sample_mont n={n}: {ms:.6f} ms/launch, device {fmt_us(got)}/launch, plain "
+              f"{plain_ms:.6f} ms, bound {bound[0]:.9f} ms ({bound[1]})")
+        if n == SAMPLE_SIZES[-1]:
+            records["sample_mont"] = record("sample_mont", ms, plain_ms, bound)
     for n in (TREE_MAIN[-1], 1 << 16):
         rows = canonical_np(field_inputs((8, n), 1300 + n)[0])
         n1_ms = host_ms(lambda: MerkleTree.from_limbs_paired(rows), 20)

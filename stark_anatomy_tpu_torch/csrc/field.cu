@@ -33,6 +33,12 @@
 //   one challenge per proof and the inverse-domain table shared.  Replaces
 //   the jnp graph stark_anatomy_tpu/protocols/fri.py:_fold_kernel_batched
 //   and _square_half as parallel/batch_prover.py:_fri_batch runs them.
+// H13 stark_sample_mont: a batch's randomness draws, each 17 bytes read as
+//   a big-endian integer, to Montgomery field elements in one launch.
+//   Replaces the host's Field.sample of each draw and utils/convert.py:
+//   device_from_ints of the values (a Python int, a modulo and a re-encode
+//   a draw) in parallel/batch_prover.py; the JAX package converts the
+//   draws on the host (its parallel/batch_prover.py:prove_batch).
 //
 // Layout: the JAX package's, kept at the port's public functions.  An
 // element is 8 little-endian 16-bit limbs held in int32 lanes, on a limb
@@ -170,6 +176,25 @@
 //     element plus 48 h.  At B = 64 and h = 2048, a production batch's
 //     first round, that is 16.9 MB, about 5 us at 3.35 TB/s: under the
 //     host time of a launch, which is what a round of the batch pays.
+//   * H13 (sample_mont_kernel) gives each thread one draw: it reads the
+//     draw's 17 bytes from the contiguous (n, 17) uint8 upload, the first
+//     byte most significant, and reduces the 136-bit value v mod p by p's
+//     sparse form: with v = a 2^119 + b (a < 2^17, b < 2^119) and
+//     a = 407 q + r (r < 407, q <= 322), 407 2^119 = p - 1 gives
+//     v = r 2^119 + b - q (mod p), where r 2^119 + b <= p - 2, so one
+//     subtract of q and at most one add of p finish (the division by the
+//     constant 407 is a multiply and a shift).  One product by R^2 mod p
+//     (mont_mul_words) takes it to Montgomery form; the thread stores its
+//     8 limbs into the contiguous (8, n) output, element j of limb row k at
+//     k n + j, the layout of device_from_ints.  What bounds it: bytes, 17
+//     read and an element written a draw (16 bytes, as every bound here
+//     counts an element; its int32 limbs take 32): at n = 98,304, a batch
+//     of 64 signatures' draws, 98,304 x (17 + 16) bytes = 3.2 MB, about
+//     1 us at 3.35 TB/s, against one product and a few dozen integer
+//     operations a draw.  The neighbouring
+//     threads' 17-byte reads fall in the same sectors, so the L1 cache
+//     serves them; nothing is reused across threads.  The launch replaces
+//     98,304 conversions on the host at 0.5-1 us each.
 //
 // Built by one nvcc call into a shared library with a plain C interface
 // (field/kernels.py).  Every entry point launches on the caller's stream,
@@ -640,6 +665,62 @@ __global__ void __launch_bounds__(kFoldThreads)
   }
 }
 
+constexpr int kSampleThreads = 256;
+constexpr int kSampleBytes = 17;       // a draw: Field.sample's bytes, big-endian
+
+// x = v mod p for v = top 2^128 + w (w in 32-bit words, least significant
+// first), v < 2^136: v = a 2^119 + b, a = 407 q + r, and 407 2^119 = p - 1,
+// so v = r 2^119 + b - q (mod p) with r 2^119 + b <= p - 2 and q <= 322.
+__device__ __forceinline__ void reduce_136(uint32_t top, const uint32_t w[4], uint32_t x[4]) {
+  const uint32_t a = (top << 9) | (w[3] >> 23);
+  const uint32_t q = a / 407u;
+  const uint32_t r = a - 407u * q;
+  x[0] = w[0];
+  x[1] = w[1];
+  x[2] = w[2];
+  x[3] = (w[3] & 0x7FFFFFu) | (r << 23);
+  uint64_t borrow = q;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint64_t t = static_cast<uint64_t>(x[k]) - borrow;
+    x[k] = static_cast<uint32_t>(t);
+    borrow = (t >> 32) & 1u;
+  }
+  if (borrow) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint64_t s = static_cast<uint64_t>(x[k]) + p_word(k) + c;
+      x[k] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+  }
+}
+
+// H13.  raw: contiguous (n, 17) bytes, draw j's big-endian value at
+// raw[17 j ..]; out: contiguous (8, n), each value mod p in Montgomery
+// form.  r2: R^2 mod p in words, least significant first.
+__global__ void __launch_bounds__(kSampleThreads)
+    sample_mont_kernel(int32_t* __restrict__ out, const uint8_t* __restrict__ raw, int64_t n,
+                       uint4 r2_4) {
+  uint32_t r2[4];
+  to_words(r2_4, r2);
+  for (int64_t j = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; j < n;
+       j += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const uint8_t* b = raw + kSampleBytes * j;
+    uint32_t w[4], x[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint8_t* lo = b + kSampleBytes - 1 - 4 * k;        // the word's least significant byte
+      w[k] = static_cast<uint32_t>(lo[0]) | (static_cast<uint32_t>(lo[-1]) << 8) |
+             (static_cast<uint32_t>(lo[-2]) << 16) | (static_cast<uint32_t>(lo[-3]) << 24);
+    }
+    reduce_136(b[0], w, x);
+    mont_mul_words(x, r2, x);
+    store4(out, 0, j, n, x);
+  }
+}
+
 int grid_for(int64_t total, int threads) {
   int64_t blocks = (total + threads - 1) / threads;
   if (blocks > (1 << 30)) blocks = 1 << 30;  // grid-stride loop covers the rest
@@ -871,6 +952,22 @@ int stark_fri_fold_batched(void* folded, void* canon, void* u2, const void* c,
       static_cast<int32_t*>(folded), static_cast<int32_t*>(canon),
       static_cast<int32_t*>(u2), static_cast<const int32_t*>(c),
       static_cast<const int32_t*>(u), static_cast<const int32_t*>(alphas), h, two_inv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// H13.  raw: contiguous (n, 17) bytes; out: contiguous (8, n).  r2: R^2
+// mod p as low and high 64-bit halves.
+int stark_sample_mont(void* out, const void* raw, int64_t n, uint64_t r2_lo, uint64_t r2_hi,
+                      void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const uint4 r2 = make_uint4(static_cast<uint32_t>(r2_lo), static_cast<uint32_t>(r2_lo >> 32),
+                              static_cast<uint32_t>(r2_hi), static_cast<uint32_t>(r2_hi >> 32));
+  sample_mont_kernel<<<grid_for(n, kSampleThreads), kSampleThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(out), static_cast<const uint8_t*>(raw), n, r2);
   return static_cast<int>(cudaGetLastError());
 }
 

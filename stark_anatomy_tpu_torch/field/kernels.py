@@ -30,7 +30,10 @@ over models/rescue_prime.py:_rescue_air_kernel), H11 ``combination`` the
 weighted combination codeword (fast_stark.py:_combination_core, the batch
 core's weighted_sum), H12 ``verify_core`` the verifier's combination at
 the query points (fast_stark.py:_verify_core with the Rescue index
-evaluator).
+evaluator).  H13 ``sample_mont`` turns a batch's randomness draws, 17
+bytes each, into Montgomery field elements in one launch (the host's
+Field.sample and utils/convert.py:device_from_ints of each draw, which
+the JAX package's batch prover runs on the host).
 The sources are csrc/field.cu, csrc/ntt_tiled.cu (H8),
 csrc/ntt_columns.cu (H9) and csrc/air.cu (H10-H12), the word arithmetic
 they share with csrc/merkle.cu, csrc/field_arith.cuh, H3's passes, which
@@ -85,7 +88,7 @@ NVCC_FLAGS = (
 BINARY = ("mont_mul", "add_mod", "sub_mod")
 KERNELS = ("mont_mul", "mont_pow", "add_mod", "sub_mod", "rescue_perm", "ntt", "merkle",
            "seed_expand", "fri_fold", "fri_fold_batched", "ntt_tiled", "ntt_columns",
-           "rescue_quotients", "combination", "verify_core")
+           "rescue_quotients", "combination", "verify_core", "sample_mont")
 AIR_KERNELS = ("rescue_quotients", "combination", "verify_core")
 LIBRARY = {name: "stark_merkle" if name in ("merkle", "seed_expand")
            else f"stark_{name}" if name in ("ntt_tiled", "ntt_columns")
@@ -207,6 +210,8 @@ _ARGTYPES = {
     "verify_core": [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
                                             ctypes.c_void_p, ctypes.c_int64]
     + [ctypes.c_void_p] * 8 + [ctypes.c_int],
+    "sample_mont": [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_uint64] * 2
+    + [ctypes.c_void_p, ctypes.c_int],
 }
 
 
@@ -1027,6 +1032,37 @@ def fri_fold_batched(codeword: torch.Tensor, u: torch.Tensor, alphas: torch.Tens
     return folded, canon, u2
 
 
+SAMPLE_BYTES = 17       # a randomness draw: Field.sample's bytes, big-endian
+R2 = R * R % P          # H13's factor to Montgomery form: x * R2 * R^-1 = x R
+
+
+def sample_layout(raw: torch.Tensor) -> int:
+    """n of the draws H13 takes: a contiguous uint8 (n, SAMPLE_BYTES)
+    tensor.  Raises ValueError otherwise."""
+    if (raw.dtype != torch.uint8 or raw.dim() != 2 or raw.shape[1] != SAMPLE_BYTES
+            or not raw.is_contiguous()):
+        raise ValueError(f"sample_mont: the kernel takes a contiguous uint8 (n, {SAMPLE_BYTES}) "
+                         f"tensor; got {tuple(raw.shape)} {raw.dtype}")
+    return raw.shape[0]
+
+
+def sample_mont(raw: torch.Tensor) -> torch.Tensor:
+    """H13: n randomness draws, each row of ``raw`` (n, 17) read as a
+    big-endian integer (Field.sample), as the contiguous (8, n) Montgomery
+    limbs of their values mod p, bit for bit ``device_from_ints`` of them."""
+    n = sample_layout(raw)
+    if raw.device.type == "cpu":
+        return sample_mont_plain(raw)
+    _check_cuda("sample_mont", raw)
+    out = torch.empty((NLIMBS, n), dtype=torch.int32, device=raw.device)
+    if n == 0:
+        return out
+    err = _entry("sample_mont")(out.data_ptr(), raw.data_ptr(), n, R2 & ((1 << 64) - 1), R2 >> 64,
+                                *_stream(raw))
+    _finish("sample_mont", err)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (any device, any broadcastable shapes)
 # ---------------------------------------------------------------------------
@@ -1363,6 +1399,19 @@ def verify_core_plain(vals: torch.Tensor, bz: torch.Tensor, ip: torch.Tensor, we
     return acc
 
 
+def sample_mont_plain(raw: torch.Tensor) -> torch.Tensor:
+    """Plain version of H13: the host route the batch prover took before
+    it, each draw's bytes as a Python int mod p (Field.sample), then
+    ``device_from_ints`` of the values onto ``raw``'s device."""
+    from ..utils.convert import device_from_ints
+
+    sample_layout(raw)
+    data = raw.cpu().numpy().tobytes()
+    values = [int.from_bytes(data[i:i + SAMPLE_BYTES], "big") % P
+              for i in range(0, len(data), SAMPLE_BYTES)]
+    return device_from_ints(values, raw.device)
+
+
 PLAIN = {
     "mont_mul": mont_mul_plain, "mont_pow": mont_pow_plain,
     "add_mod": add_mod_plain, "sub_mod": sub_mod_plain,
@@ -1370,5 +1419,5 @@ PLAIN = {
     "fri_fold": fri_fold_plain, "fri_fold_batched": fri_fold_batched_plain,
     "ntt_tiled": ntt_tiled_plain, "ntt_columns": ntt_columns_plain,
     "rescue_quotients": rescue_quotients_plain, "combination": combination_plain,
-    "verify_core": verify_core_plain,
+    "verify_core": verify_core_plain, "sample_mont": sample_mont_plain,
 }

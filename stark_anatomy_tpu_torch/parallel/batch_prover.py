@@ -7,8 +7,12 @@ through it with B = 1.  The device phases are parallel/batch.py's
 work (Merkle roots, Fiat-Shamir challenges, FRI's index draws) loops over
 the batch, and the stark's ``timer`` records the JAX package's five
 phases (pipeline, commit, combination, fri, openings), the part
-``batch.statements`` before them and the parts ``fri.rounds`` and
-``fri.queries`` of ``fri``.  The statements share their boundary
+``batch.statements`` before them (its part ``batch.draws``, the calls to
+``urandom``, inside its first span) and the parts ``fri.rounds`` and
+``fri.queries`` of ``fri``.  The batch's randomness draws stay the bytes
+``urandom`` gives, 17 a draw in the JAX package's order, are copied to
+the device once, and become Montgomery elements by one H13 launch
+(field/kernels.py:sample_mont).  The statements share their boundary
 zerofiers; their public keys are one H2 launch and their interpolants
 one evaluation.  The trees of a commitment or a FRI round are hashed for
 the whole batch at once: where the batch lies on a CUDA card
@@ -54,11 +58,14 @@ from ..transcript.proof_stream import SignatureProofStream
 from ..utils.convert import device_from_ints, ints_from_device, limb_rows_np
 from .batch import combination, pipeline
 
-# The span of a batch's statements: the draws' conversion, the public keys
-# (rp.hash, on the card) and the boundary tables, before ``pipeline``.  The name is a
-# part's (utils/profiling.py), so the phase table keeps exactly the JAX
+# The span of a batch's statements: the draws and their conversion, the
+# public keys (rp.hash, on the card) and the boundary tables, before
+# ``pipeline``; and its part of the ``urandom`` calls alone.  The names are
+# parts' (utils/profiling.py), so the phase table keeps exactly the JAX
 # package's five phases.
 STATEMENTS = "batch.statements"
+DRAWS = "batch.draws"
+SAMPLE = K.SAMPLE_BYTES
 
 
 class BatchProver:
@@ -112,7 +119,8 @@ class BatchProver:
         """Prove knowledge of each input (hash preimage): one proof per
         transcript in ``proof_streams``.  Randomness comes from ``urandom``
         in the JAX package's order and sizes: B*R*nrand draws of 17 bytes,
-        then B*(max_degree+1)."""
+        then B*(max_degree+1), one call a draw.  Their bytes are kept as
+        they come; each group of the mesh converts its own on its device."""
         stark = self.stark
         B = len(inputs)
         width = stark.num_registers * stark.num_randomizers
@@ -121,28 +129,28 @@ class BatchProver:
         dist = mesh is not None and mesh.backend == "dist"
         draws = None
         if not dist or mesh.rank == 0:
-            with stark.timer.phase(STATEMENTS):
-                p = self.field.p           # Field.sample of each draw
-                draws = [int.from_bytes(urandom(17), "big") % p for _ in range(B * (width + depth))]
+            with stark.timer.phase(STATEMENTS), stark.timer.phase(DRAWS):
+                draws = b"".join([urandom(SAMPLE) for _ in range(B * (width + depth))])
         if dist:
             draws = mesh.broadcast(draws)
         if mesh is None or B % mesh.shape["dp"]:
-            return self._prove(inputs, proof_streams, draws[: B * width], draws[B * width:])
+            return self._prove(inputs, proof_streams, draws)
         b = B // mesh.shape["dp"]
         proofs = {}
         for g in ([mesh.dp_index] if dist else range(mesh.shape["dp"])):
             lo, hi = g * b, (g + 1) * b
+            rows = draws[lo * width * SAMPLE: hi * width * SAMPLE]
+            poly = draws[(B * width + lo * depth) * SAMPLE: (B * width + hi * depth) * SAMPLE]
             proofs[g] = self._prover_on(mesh.devices[g][0])._prove(
-                inputs[lo:hi], proof_streams[lo:hi], draws[lo * width: hi * width],
-                draws[B * width + lo * depth: B * width + hi * depth])
+                inputs[lo:hi], proof_streams[lo:hi], rows + poly)
         if dist:
             for part in mesh.gather_all(proofs):
                 proofs.update(part)
         return [p for g in sorted(proofs) for p in proofs[g]]
 
-    def _prove(self, inputs, proof_streams, row_vals: List[int], poly_vals: List[int]) -> List[bytes]:
-        """The proofs of ``inputs`` on this prover's device from the drawn
-        values: B*R*nrand randomizer rows, then B*(max_degree+1)
+    def _prove(self, inputs, proof_streams, draws: bytes) -> List[bytes]:
+        """The proofs of ``inputs`` on this prover's device from the draws'
+        bytes, 17 a draw: B*R*nrand randomizer rows, then B*(max_degree+1)
         randomizer polynomial coefficients."""
         stark = self.stark
         rp = self.rp
@@ -151,7 +159,8 @@ class BatchProver:
         R = stark.num_registers
         nrand = stark.num_randomizers
 
-        max_degree = len(poly_vals) // B - 1
+        width = R * nrand
+        max_degree = len(draws) // (SAMPLE * B) - width - 1
         timer = stark.timer
 
         with timer.phase(STATEMENTS):
@@ -159,8 +168,11 @@ class BatchProver:
             # the public keys rp.hash(sk), by one H2 launch for the batch
             boundaries = [rp.boundary_constraints(FieldElement(pk, self.field))
                           for pk in ints_from_device(RP.hash_batch(sk_dev))]
-            rand_rows = device_from_ints(row_vals, dev).reshape(NLIMBS, B, R, nrand).permute(1, 2, 0, 3)
-            rand_poly = device_from_ints(poly_vals, dev).reshape(NLIMBS, B, max_degree + 1).permute(1, 0, 2)
+            # the draws' values (8, n), by one copy and one H13 launch
+            raw = torch.frombuffer(bytearray(draws), dtype=torch.uint8).view(-1, SAMPLE)
+            vals = K.sample_mont(raw.to(dev))
+            rand_rows = vals[:, :B * width].reshape(NLIMBS, B, R, nrand).permute(1, 2, 0, 3)
+            rand_poly = vals[:, B * width:].reshape(NLIMBS, B, max_degree + 1).permute(1, 0, 2)
             # (R, L, N) zerofiers shared by the batch, (B, R, L, N) interpolants
             inv_bz, interp = stark._boundary_tables_batch(boundaries)
 

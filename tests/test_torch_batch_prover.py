@@ -61,6 +61,17 @@ def det_urandom(seed: bytes):
     return rand
 
 
+def spy_urandom(seed: bytes, calls: list):
+    """``det_urandom(seed)`` that records the size of every call."""
+    draw = det_urandom(seed)
+
+    def rand(n: int) -> bytes:
+        calls.append(n)
+        return draw(n)
+
+    return rand
+
+
 def inputs():
     return [FIELD.sample(bytes([7, i])) for i in range(B)]
 
@@ -122,6 +133,19 @@ def test_each_package_verifies_the_others_batch(jax_batch, port_prover, port_pro
                             proof_stream_factory=port_stream), stark.last_rejection
         assert jstark.verify(port_proofs[i], jair, boundary, jtz.root,
                              proof_stream_factory=jax_stream)
+
+
+def test_the_batch_draws_17_bytes_a_call_in_the_jax_package_s_order(port_prover, port_proofs):
+    """A batch makes the JAX package's calls to ``urandom``, one a draw of
+    17 bytes, B*(R*nrand + max_degree + 1) in all, and its proofs are the
+    seeded ones (byte-identical to the JAX package's)."""
+    stark = port_prover.stark
+    calls = []
+    proofs = port_prover.prove_batch(inputs(), [SignatureProofStream(d) for d in DOCS],
+                                     urandom=spy_urandom(SEED, calls))
+    width = stark.num_registers * stark.num_randomizers
+    assert calls == [17] * (B * (width + stark.max_degree(port_prover.air) + 1))
+    assert proofs == port_proofs
 
 
 def test_a_proof_is_rejected_under_another_document(port_prover, port_proofs):

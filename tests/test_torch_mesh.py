@@ -115,6 +115,33 @@ def test_batch_split_over_dp_matches_unsplit():
     assert split == whole
 
 
+def test_a_batch_of_4_split_over_two_groups_draws_as_the_unsplit_one():
+    """Each group converts its own slices of the one stream of draws: the
+    calls to ``urandom`` (17 bytes each, B*(R*nrand + max_degree + 1)) are
+    the unsplit batch's, and so are the proofs."""
+    rp = RescuePrime()
+    stark = FastStark(FIELD, 4, 2, 4, rp.m, rp.N + 1, transition_constraints_degree=3, device="cpu")
+    tz = stark.preprocess()
+    docs = [b"mesh draws %d" % i for i in range(4)]
+    inputs = [FIELD.sample(bytes([5, i])) for i in range(4)]
+    unsplit = BatchProver(stark, rp, tz)
+    mesh = Mesh([[torch.device("cpu")], [torch.device("cpu")]])
+    split = BatchProver(stark, rp, tz, mesh=mesh, air=unsplit.air)
+    calls, proofs = {}, {}
+    for label, prover in (("unsplit", unsplit), ("split", split)):
+        draw, seen = det_urandom(b"dp draws"), []
+        calls[label] = seen
+
+        def spy(n, draw=draw, seen=seen):
+            seen.append(n)
+            return draw(n)
+
+        proofs[label] = prover.prove_batch(inputs, [SignatureProofStream(d) for d in docs], urandom=spy)
+    width = stark.num_registers * stark.num_randomizers
+    assert calls["split"] == calls["unsplit"] == [17] * (4 * (width + stark.max_degree(unsplit.air) + 1))
+    assert proofs["split"] == proofs["unsplit"]
+
+
 @pytest.mark.parametrize("shards", [1, 2, 4, 8])
 def test_collective_bytes_model_matches_jax(shards):
     steps = 1 << 10

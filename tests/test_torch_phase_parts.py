@@ -185,13 +185,18 @@ def test_a_batch_records_its_statements_and_the_parts_of_fri_and_changes_no_byte
     proofs = batch_sign(recorder)
     assert proofs == batch_sign(PhaseTimer())
     assert set(recorder.totals) == set(recorder.counts) == BATCH_PHASES
-    assert dict(recorder.part_counts) == {"batch.statements": 2, "fri.rounds": 1, "fri.queries": 1}
+    assert dict(recorder.part_counts) == {"batch.statements": 2, "batch.draws": 1, "fri.rounds": 1,
+                                          "fri.queries": 1}
     spans = sorted(recorder.spans, key=lambda s: s[1])
     names = [name for name, _, _ in spans]
-    assert names == ["batch.statements", "batch.statements", "pipeline", "commit", "combination",
-                     "fri", "fri.rounds", "fri.queries", "openings"]
+    assert names == ["batch.statements", "batch.draws", "batch.statements", "pipeline", "commit",
+                     "combination", "fri", "fri.rounds", "fri.queries", "openings"]
     fri = dict((name, (a, b)) for name, a, b in spans)["fri"]
     for name, a, b in spans:
         if name.startswith("fri."):
             assert fri[0] <= a <= b <= fri[1], name
-    assert all(b <= a2 for (_, _, b), (_, a2, _) in zip(spans[:5], spans[1:6]))
+    # the draws lie inside the first statements; the spans around them follow one another
+    (_, s0, s1), (_, d0, d1) = spans[:2]
+    assert s0 <= d0 <= d1 <= s1
+    outer = [span for span in spans if span[0] != "batch.draws"]
+    assert all(b <= a2 for (_, _, b), (_, a2, _) in zip(outer[:5], outer[1:6]))
